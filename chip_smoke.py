@@ -1,0 +1,525 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py        # from the repository root, one GPU
+
+Phases (any failure exits non-zero; one JSON object per phase on stdout):
+
+1. build the paged attention kernels from ``runbookai_tpu_torch/csrc`` with
+   nvcc for sm_90a (ptxas report in ``chiprun_out/ptxas.txt``);
+2. hold the decode kernel against its plain version at the serving shapes
+   (B=8, 32 query / 8 kv heads, head_dim 128, 16-token pages, 513-wide
+   tables, ctx 0..8191) for bf16 and f32 pools, and time it;
+3. hold the chunk kernel against its plain version on a 4 x 512 prefill at
+   offsets 0 and 512, a T=8 verify from ctx-1, and a chunk with a pad tail,
+   and time the prefill and the verify inputs; both kernel phases show that
+   the tolerance rejects a result with the last page dropped;
+4. check the forward on the card (both kernels) against the checked-in HF
+   golden logits and against the same forward on the CPU;
+5. serve llama3-8b-instruct at full width (random weights from a seed)
+   through ``TorchCudaClient.chat``: 5 concurrent greedy requests of 64 to
+   1024 prompt tokens, 32 new tokens each. Kernel launch counts are zeroed
+   just before and read just after; both must rise;
+6. serve the same requests once more under torch.profiler: device time by
+   kernel class and the device's idle share. Both serving phases fail if
+   the engine loop crashed or a request was aborted.
+
+Then it prints the kernels' line, the card's name and power limit, and as
+its last line ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+OUT_DIR = ROOT / "chiprun_out"
+DEVICE = "cuda"
+ENGINE_MODEL = "llama3-8b-instruct"
+
+# Decode-kernel shapes: the llama3-8b-instruct serving geometry.
+B, N_Q, N_KV, HD, PS = 8, 32, 8, 128, 16
+MAX_PAGES = 8192 // PS  # + 1 trash column
+NUM_PAGES = 2048
+DECODE_CTX = [0, 1, 16, 17, 1000, 8191, 300, 4097]
+# |kernel - plain| <= ATOL + RTOL * |plain|. f32: summation order only.
+# bf16: both versions compute in f32 and round the output once to bf16, so
+# they may differ by one bf16 ulp (at most 2**-7 relative, under RTOL).
+# Each kernel phase also shows that a result with the last page of every
+# sequence dropped lies outside these limits.
+TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-3, 1e-2)}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # H100 SXM, dense
+PEAK_BYTES_S = 3.35e12
+
+
+def emit(obj: dict) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(n_bytes: float, flops: float, dtype_name: str) -> tuple[float, str]:
+    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def excess(got, want, dtype_name: str):
+    """|got - want| beyond the tolerance (> 0 where it fails), and |got - want|."""
+    atol, rtol = TOL[dtype_name]
+    diff = (got.float() - want.float()).abs()
+    return diff - (atol + rtol * want.float().abs()), diff
+
+
+def compare(got, want, dtype_name: str, what: str) -> float:
+    over, diff = excess(got, want, dtype_name)
+    if not bool(diff.isfinite().all()):
+        raise AssertionError(f"{what}: non-finite kernel output")
+    if float(over.max()) > 0:
+        atol, rtol = TOL[dtype_name]
+        raise AssertionError(f"{what}: max |err| {float(diff.max()):.3e} beyond "
+                             f"atol {atol} rtol {rtol}")
+    return float(diff.max())
+
+
+def cut_last_page(ctx):
+    """Context lengths with the last (partial or full) page cut off."""
+    return ((ctx - 1).clamp_min(0) // PS * PS).to(ctx.dtype)
+
+
+def drop_last_page(pa, q, k, v, tables, ctx, q_start, ref, dtype_name: str) -> dict:
+    """What the tolerance makes of a wrong kernel: the plain version with
+    the last page of every sequence dropped, held against the sound result.
+    Fails unless the check rejects it in every sequence that had keys."""
+    short = cut_last_page(ctx)
+    wrong = pa.plain_paged_attention(q, k, v, tables, short, q_start, PS)
+    over, diff = excess(wrong, ref, dtype_name)
+    live = [i for i, c in enumerate(ctx.tolist()) if c > 0]
+    per_row = [float(diff[i].max()) for i in live]
+    rejected = [bool(over[i].max() > 0) for i in live]
+    if not all(rejected):
+        raise AssertionError(f"{dtype_name}: the tolerance accepts a result with the "
+                             f"last page dropped (rows {live}, rejected {rejected})")
+    return {"max_abs_err_by_row": per_row, "rows_rejected": sum(rejected),
+            "rows": len(live)}
+
+
+def make_pool(gen, dtype, ctx_lens, device):
+    """Random pools, and tables whose live pages are distinct per sequence;
+    entries past ctx point at random pages, the trash column at page 0."""
+    import torch
+
+    k = torch.randn((NUM_PAGES * PS, N_KV, HD), generator=gen, device=device).to(dtype)
+    v = torch.randn((NUM_PAGES * PS, N_KV, HD), generator=gen, device=device).to(dtype)
+    tables = torch.randint(1, NUM_PAGES, (len(ctx_lens), MAX_PAGES + 1),
+                           generator=gen, device=device, dtype=torch.int32)
+    tables[:, MAX_PAGES] = 0
+    perm = torch.randperm(NUM_PAGES - 1, generator=gen, device=device) + 1
+    nxt = 0
+    for i, ctx in enumerate(ctx_lens):
+        need = -(-ctx // PS)
+        tables[i, :need] = perm[nxt:nxt + need].to(torch.int32)
+        nxt += need
+    return k, v, tables
+
+
+def gather_for_library(q4, k, v, tables, ctx_lens, kv_len):
+    """[B, n_q, *, hd] operands for scaled_dot_product_attention (K/V
+    gathered through the tables and repeated over the GQA group)."""
+    import torch
+
+    n_pages = -(-kv_len // PS)
+    rows = (tables[:, :n_pages].long()[:, :, None] * PS
+            + torch.arange(PS, device=k.device)).reshape(len(ctx_lens), -1)
+    group = N_Q // N_KV
+    kk = k[rows].permute(0, 2, 1, 3).repeat_interleave(group, dim=1).contiguous()
+    vv = v[rows].permute(0, 2, 1, 3).repeat_interleave(group, dim=1).contiguous()
+    return q4.permute(0, 2, 1, 3).contiguous(), kk, vv
+
+
+def phase_build(pa) -> dict:
+    t0 = time.perf_counter()
+    path, report = pa.build()
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "ptxas.txt").write_text(report)
+    return {"phase": "build", "library": str(path.relative_to(ROOT)),
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_decode(pa, torch) -> dict:
+    import torch.nn.functional as F
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    ctx = torch.tensor(DECODE_CTX, dtype=torch.int32, device=dev)
+    result: dict = {"phase": "decode_kernel", "ctx_lens": DECODE_CTX}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        k, v, tables = make_pool(gen, dtype, DECODE_CTX, dev)
+        q = torch.randn((B, N_Q, HD), generator=gen, device=dev).to(dtype)
+        out = pa.paged_decode_attention(q, k, v, tables, ctx, PS)
+        ref = pa.plain_paged_attention(q[:, None], k, v, tables, ctx, None, PS)[:, 0]
+        torch.cuda.synchronize()
+        err = compare(out, ref, name, f"decode {name}")
+        if bool(out[0].abs().max() != 0):
+            raise AssertionError("decode: a ctx-0 row must be zeros")
+        wrong = drop_last_page(pa, q[:, None], k, v, tables, ctx, None,
+                               ref[:, None], name)
+        ms = time_ms(lambda: pa.paged_decode_attention(q, k, v, tables, ctx, PS))
+        plain_ms = time_ms(lambda: pa.plain_paged_attention(
+            q[:, None], k, v, tables, ctx, None, PS), iters=3, warmup=1)
+        q4, kk, vv = gather_for_library(q[:, None], k, v, tables, DECODE_CTX,
+                                        max(DECODE_CTX))
+        mask = (torch.arange(kk.shape[2], device=dev)[None, :] < ctx[:, None].long()
+                )[:, None, None, :]
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q4, kk, vv, attn_mask=mask), iters=5, warmup=1)
+        del kk, vv
+        size = k.element_size()
+        tokens = sum(DECODE_CTX)
+        n_bytes = (2 * q.numel() * q.element_size() + tokens * N_KV * HD * 2 * size
+                   + sum(-(-c // PS) for c in DECODE_CTX) * 4 + B * 4)
+        bound_ms, bound_by = bound(n_bytes, 4.0 * tokens * N_Q * HD, name)
+        result[name] = {"max_abs_err": err, "tol": TOL[name], "ms": ms,
+                        "plain_ms": plain_ms, "library_ms": library_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "drop_last_page": wrong}
+    return result
+
+
+def chunk_inputs(torch, dev, gen, dtype, kind):
+    """(q, k, v, tables, ctx, positions, real tokens per row)."""
+    trash = MAX_PAGES * PS
+    if kind == "prefill":  # 4 x 512 tokens at offsets 0 and 512
+        t, starts, real = 512, [0, 512, 0, 512], [512] * 4
+    elif kind == "verify":  # T=8 from ctx-1
+        t = 8
+        before = [1, 16, 17, 1000, 8100, 300, 4097, 64]
+        starts, real = [c - 1 for c in before], [8] * 8
+    else:  # pad tail: 100 real tokens, a full chunk, a pad row, 37 tokens
+        t, starts, real = 512, [0, 512, trash, 1024], [100, 512, 0, 37]
+    ctx_lens = [s + n if n else 1 for s, n in zip(starts, real)]
+    k, v, tables = make_pool(gen, dtype, ctx_lens, dev)
+    pos = torch.full((len(starts), t), trash, dtype=torch.int32, device=dev)
+    for i, (s, n) in enumerate(zip(starts, real)):
+        if n:
+            pos[i, :n] = torch.arange(s, s + n, dtype=torch.int32, device=dev)
+        else:
+            tables[i] = 0  # the engine's pad row: null table, ctx 1
+    q = torch.randn((len(starts), t, N_Q, HD), generator=gen, device=dev).to(dtype)
+    ctx = torch.tensor(ctx_lens, dtype=torch.int32, device=dev)
+    return q, k, v, tables, ctx, pos, real
+
+
+def time_chunk(pa, torch, q, k, v, tables, ctx, pos, dtype_name: str) -> dict:
+    """Kernel, plain-version and SDPA times of one chunk call, and its bound."""
+    import torch.nn.functional as F
+
+    dev = q.device
+    q_start = pos[:, 0].contiguous()
+    ms = time_ms(lambda: pa.paged_chunk_attention(q, k, v, tables, ctx, pos, PS))
+    plain_ms = time_ms(lambda: pa.plain_paged_attention(
+        q, k, v, tables, ctx, q_start, PS), iters=3, warmup=1)
+    t = q.shape[1]
+    q4, kk, vv = gather_for_library(q, k, v, tables, ctx.tolist(), int(ctx.max()))
+    kpos = torch.arange(kk.shape[2], device=dev)
+    qpos = pos[:, :1].long() + torch.arange(t, device=dev)
+    mask = ((kpos[None, None, :] < ctx[:, None, None].long())
+            & (kpos[None, None, :] <= qpos[:, :, None]))[:, None]
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q4, kk, vv, attn_mask=mask), iters=5, warmup=1)
+    del kk, vv
+    ctx_l, start_l = ctx.tolist(), q_start.tolist()
+    pairs = sum(min(c, s + i + 1) for c, s in zip(ctx_l, start_l) for i in range(t))
+    n_bytes = (2 * q.numel() * q.element_size()
+               + sum(ctx_l) * N_KV * HD * 2 * k.element_size()
+               + sum(-(-c // PS) for c in ctx_l) * 4 + 2 * len(ctx_l) * 4)
+    bound_ms, bound_by = bound(n_bytes, 4.0 * pairs * N_Q * HD, dtype_name)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_chunk(pa, torch) -> dict:
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    result: dict = {"phase": "chunk_kernel"}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        errs, wrong, timed = {}, {}, {}
+        for kind in ("prefill", "verify", "pad_tail"):
+            q, k, v, tables, ctx, pos, real = chunk_inputs(torch, dev, gen, dtype, kind)
+            q_start = pos[:, 0].contiguous()
+            out = pa.paged_chunk_attention(q, k, v, tables, ctx, pos, PS)
+            ref = pa.plain_paged_attention(q, k, v, tables, ctx, q_start, PS)
+            torch.cuda.synchronize()
+            errs[kind] = compare(out, ref, name, f"chunk {kind} {name}")
+            # The engine's pad row has ctx 1 on the null page: not a sequence.
+            live = [i for i, n in enumerate(real) if n]
+            sel = torch.tensor(live, device=dev)
+            wrong[kind] = drop_last_page(pa, q[sel], k, v, tables[sel], ctx[sel],
+                                         q_start[sel], ref[sel], name)
+            # Time the prefill input (the heaviest chunk call) and the T=8
+            # verify (most of the main path's chunk launches).
+            if kind != "pad_tail":
+                timed[kind] = time_chunk(pa, torch, q, k, v, tables, ctx, pos, name)
+            del q, k, v, out, ref
+        result[name] = {"max_abs_err": max(errs.values()), "errs": errs,
+                        "tol": TOL[name], **timed["prefill"], "verify": timed["verify"],
+                        "drop_last_page": wrong}
+    return result
+
+
+def phase_forward(torch) -> dict:
+    """The forward on the card (kernels) against the HF golden logits, and a
+    decode step against the same forward on the CPU (plain versions)."""
+    import numpy as np
+
+    from runbookai_tpu_torch.models.hf_loader import config_from_hf, load_params
+    from runbookai_tpu_torch.models.llama import forward_impl
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out: dict = {"phase": "forward_vs_golden"}
+    for name in ("hf-tiny-untied", "hf-tiny-qwen2", "hf-tiny-rope31"):
+        d = ROOT / "tests" / "fixtures" / name
+        blob = np.load(d / "expected_logits.npz")
+        ids = torch.from_numpy(blob["input_ids"]).long()
+        b, t = ids.shape
+        ps, max_pages = 4, 16
+        tables = torch.zeros((b, max_pages + 1), dtype=torch.int32)
+        for i in range(b):
+            tables[i, : max_pages] = torch.arange(1 + i * max_pages, 1 + (i + 1) * max_pages)
+        logits = {}
+        for dev in (DEVICE, "cpu"):
+            cfg, params = load_params(d, config_from_hf(d, name=name),
+                                      dtype=torch.float32, device=dev)
+            shape = (cfg.n_layers, (1 + b * max_pages) * ps, cfg.n_kv_heads, cfg.head_dim)
+            kv_k = torch.zeros(shape, device=dev)
+            kv_v = torch.zeros(shape, device=dev)
+            tab = tables.to(dev)
+            pos = torch.arange(t, dtype=torch.int32, device=dev).expand(b, t).contiguous()
+            pre = forward_impl(params, cfg, ids.to(dev), pos, kv_k, kv_v, tab,
+                               torch.full((b,), t, dtype=torch.int32, device=dev), ps)
+            nxt = pre[:, -1].argmax(-1)[:, None]
+            dec = forward_impl(params, cfg, nxt, torch.full((b, 1), t, dtype=torch.int32,
+                                                          device=dev),
+                               kv_k, kv_v, tab,
+                               torch.full((b,), t + 1, dtype=torch.int32, device=dev), ps)
+            logits[dev] = (pre.cpu(), dec.cpu())
+        golden = float((logits[DEVICE][0] - torch.from_numpy(blob["logits"])).abs().max())
+        np.testing.assert_allclose(logits[DEVICE][0].numpy(), blob["logits"],
+                                   atol=2e-4, rtol=2e-3)
+        np.testing.assert_allclose(logits[DEVICE][1].numpy(), logits["cpu"][1].numpy(),
+                                   atol=1e-4, rtol=1e-4)
+        out[name] = {"golden_max_abs_err": golden,
+                     "decode_vs_cpu_max_abs_err":
+                         float((logits[DEVICE][1] - logits["cpu"][1]).abs().max())}
+    return out
+
+
+def prompts() -> list[str]:
+    """User turns for 64..1024-token prompts (byte tokenizer, chat template
+    included); the fourth repeats itself so prompt-lookup can draft."""
+    words = ("checkout latency alarm fired at 09:14 for the payments api; "
+             "p99 rose from 180ms to 2.4s after deploy 4411. ")
+    return ["why is checkout slow?",
+            words * 3,
+            words * 6,
+            "restart the checkout service. " * 24,
+            words * 8]
+
+
+async def serve(client, texts):
+    t0 = time.perf_counter()
+    resps = await asyncio.gather(*(client.chat("", u) for u in texts))
+    return resps, time.perf_counter() - t0
+
+
+def phase_engine(pa, torch) -> dict:
+    from runbookai_tpu_torch.model.torch_cuda import TorchCudaClient
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    client = TorchCudaClient.build(ENGINE_MODEL, device=DEVICE,
+                                   dtype=torch.bfloat16, seed=0, max_new_tokens=32)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    core = client.core
+    texts = prompts()
+    prompt_tokens = [len(client._prompt_ids("", u, None)) for u in texts]
+    if min(prompt_tokens) < 64 or max(prompt_tokens) > 1024:
+        raise AssertionError(f"prompt lengths {prompt_tokens} outside 64..1024")
+
+    pa.reset_launches()
+    resps, wall = asyncio.run(_serve_and_stop(client, texts))
+    counts = dict(pa.launches)
+
+    done, finished = check_served(client, resps, len(texts))
+    if counts["paged_decode_attention"] == 0 or counts["paged_chunk_attention"] == 0:
+        raise AssertionError(f"main path skipped a kernel: {counts}")
+    ttft = [r.usage["ttft_ms"] for r in resps]
+    return {"phase": "engine", "model": ENGINE_MODEL, "dtype": "bfloat16",
+            "requests": len(texts), "prompt_tokens": prompt_tokens,
+            "completion_tokens": done,
+            "finish_reasons": [r.finish_reason.value for r in finished],
+            "wall_s": wall, "tokens_per_s": sum(done) / wall,
+            "ttft_ms": ttft, "build_s": build_s, "launches": counts,
+            "engine_metrics": core.metrics,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+def check_served(client, resps, n_requests: int):
+    """Every request of a serving run finished without a crash or an abort,
+    with 1..32 completion tokens inside the vocabulary. Returns (completion
+    token counts, finished requests)."""
+    core = client.core
+    if client.engine.crash_count:
+        raise AssertionError(f"the engine loop crashed {client.engine.crash_count} "
+                             f"time(s); its requests were aborted")
+    done = [r.usage["completion_tokens"] for r in resps]
+    finished = list(core.finished)
+    if len(finished) != n_requests or any(r.finish_reason is None for r in finished):
+        raise AssertionError("not every request finished")
+    if any(r.finish_reason.value == "aborted" for r in finished):
+        raise AssertionError("a request was aborted")
+    if any(not 1 <= n <= 32 for n in done):
+        raise AssertionError(f"completion token counts {done}")
+    vocab = core.cfg.vocab_size
+    if any(not 0 <= t < vocab for r in finished for t in r.all_out_ids):
+        raise AssertionError("a sampled id lies outside the vocabulary")
+    return done, finished
+
+
+def phase_profile(torch) -> dict:
+    """The engine phase's workload again, on a fresh client with the same
+    seed, under torch.profiler: device time by kernel class, and the
+    device's idle share of the serving wall time (profiler on)."""
+    import gc
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from runbookai_tpu_torch.model.torch_cuda import TorchCudaClient
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    client = TorchCudaClient.build(ENGINE_MODEL, device=DEVICE,
+                                   dtype=torch.bfloat16, seed=0, max_new_tokens=32)
+    torch.cuda.synchronize()
+    texts = prompts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        resps, wall = asyncio.run(_serve_and_stop(client, texts))
+        torch.cuda.synchronize()
+    check_served(client, resps, len(texts))
+    classes: dict[str, list] = {}
+    by_name: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name, ms = e.name, e.time_range.elapsed_us() / 1e3
+        if "paged_attention_kernel" in name:  # template flag kCausal
+            cls = "chunk_attention" if "true>" in name else "decode_attention"
+        elif any(s in name.lower() for s in ("gemm", "nvjet", "cutlass", "xmma")):
+            cls = "matmul"
+        else:
+            cls = "other"
+        acc = classes.setdefault(cls, [0.0, 0])
+        acc[0] += ms
+        acc[1] += 1
+        by_name[name] = by_name.get(name, 0.0) + ms
+    busy = sum(v[0] for v in classes.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return {"phase": "engine_profile", "wall_ms": wall * 1e3,
+            "device_busy_ms": busy,
+            "idle_share": (1.0 - busy / (wall * 1e3)) if busy else None,
+            "by_class_ms": {k: v[0] for k, v in sorted(classes.items())},
+            "kernels_by_class": {k: v[1] for k, v in sorted(classes.items())},
+            "top_kernels_ms": {n[:120]: ms for n, ms in top}}
+
+
+async def _serve_and_stop(client, texts):
+    try:
+        return await serve(client, texts)
+    finally:
+        await client.shutdown()
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    try:
+        from runbookai_tpu_torch.ops import paged_attention as pa
+    except ImportError as e:
+        print(f"chip_smoke: the port is not next to this script ({e})", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    emit({"phase": "env", "torch": torch.__version__, "cuda": torch.version.cuda,
+          "device": torch.cuda.get_device_name(0)})
+    emit(phase_build(pa))
+    dec = phase_decode(pa, torch)
+    emit(dec)
+    chk = phase_chunk(pa, torch)
+    emit(chk)
+    emit(phase_forward(torch))
+    eng = phase_engine(pa, torch)
+    emit(eng)
+    emit(phase_profile(torch))
+
+    src = "runbookai_tpu_torch/csrc/paged_attention.cu"
+    pallas = "runbookai_tpu/ops/paged_attention_pallas.py"
+    kernels = []
+    for name, res, line in (("paged_decode_attention", dec, 188),
+                            ("paged_chunk_attention", chk, 397)):
+        main_path = res["bfloat16"]
+        row = {"name": name, "route": "cuda", "source": src,
+               "replaces": f"{pallas}:{line}",
+               "launches": eng["launches"][name],
+               "max_abs_err": max(res["bfloat16"]["max_abs_err"],
+                                  res["float32"]["max_abs_err"]),
+               "ms": main_path["ms"], "plain_ms": main_path["plain_ms"],
+               "bound_ms": main_path["bound_ms"],
+               "bound_by": main_path["bound_by"],
+               "library_ms": main_path["library_ms"]}
+        if "verify" in main_path:  # the chunk kernel: the prefill above, T=8 here
+            row["verify"] = main_path["verify"]
+        kernels.append(row)
+    emit({"kernels": kernels})
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,62 @@
+"""``python -m runbookai_tpu_torch chat "<prompt>"``: serve one chat turn.
+
+Builds the client (random weights from ``--seed``, byte tokenizer), serves
+the prompt through the engine, prints the reply, then one JSON line of
+stats.
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import json
+import sys
+import time
+
+import torch
+
+from runbookai_tpu_torch.model.torch_cuda import TorchCudaClient
+from runbookai_tpu_torch.ops import paged_attention
+
+
+def _parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="python -m runbookai_tpu_torch")
+    sub = p.add_subparsers(dest="cmd", required=True)
+    chat = sub.add_parser("chat", help="serve one chat turn")
+    chat.add_argument("prompt")
+    chat.add_argument("--model", default="llama3-8b-instruct")
+    chat.add_argument("--device", default="cuda")
+    chat.add_argument("--max-new-tokens", type=int, default=128)
+    chat.add_argument("--seed", type=int, default=0)
+    return p
+
+
+async def _chat(args) -> dict:
+    dtype = torch.float32 if args.device == "cpu" else torch.bfloat16
+    client = TorchCudaClient.build(args.model, device=args.device, dtype=dtype,
+                                   seed=args.seed,
+                                   max_new_tokens=args.max_new_tokens)
+    t0 = time.perf_counter()
+    try:
+        resp = await client.chat("", args.prompt)
+    finally:
+        await client.shutdown()
+    elapsed = time.perf_counter() - t0
+    print(resp.content)
+    n = resp.usage["completion_tokens"]
+    return {"model": args.model, "device": str(client.core.device),
+            "prompt_tokens": resp.usage["prompt_tokens"],
+            "completion_tokens": n, "ttft_ms": resp.usage["ttft_ms"],
+            "elapsed_s": elapsed, "tokens_per_s": n / elapsed if elapsed else 0.0,
+            "kernel_launches": dict(paged_attention.launches)}
+
+
+def main(argv=None) -> int:
+    args = _parser().parse_args(argv)
+    stats = asyncio.run(_chat(args))
+    print(json.dumps(stats))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,365 @@
+"""Llama-3 family in PyTorch — the paged serving forward.
+
+The counterpart of ``runbookai_tpu/models/llama.py`` on one GPU:
+
+- Params are a plain dict with every transformer layer **stacked on a
+  leading axis** (``[L, in, out]``, computed as ``x @ w``), the JAX
+  package's layout, so parameters convert one to one
+  (:mod:`runbookai_tpu_torch.models.convert`). The layer ``lax.scan``
+  becomes a Python loop over the ``[L, ...]`` slices.
+- One forward covers chunked prefill and decode (decode is T = 1): the
+  chunk's K/V are written into the paged pool IN PLACE (this replaces the
+  JAX package's buffer donation), then the queries attend over the pool
+  through the decode kernel (T = 1) or the chunk kernel (T > 1).
+- GQA, RMSNorm in float32, the projections and LM head as plain matmuls in
+  the activation dtype, logits cast to float32 after the LM-head product.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Optional
+
+import torch
+
+from runbookai_tpu_torch.ops.attention import write_kv_pages_batch
+from runbookai_tpu_torch.ops.paged_attention import (
+    paged_chunk_attention,
+    paged_decode_attention,
+)
+from runbookai_tpu_torch.ops.rope import rope_cos_sin, rotate
+
+Params = dict[str, Any]
+
+
+@dataclass(frozen=True)
+class LlamaConfig:
+    name: str
+    vocab_size: int
+    dim: int
+    n_layers: int
+    n_heads: int
+    n_kv_heads: int
+    ffn_dim: int
+    rope_theta: float = 500_000.0
+    # Llama-3.1 long-context rope scaling (NTK-by-parts): tuple
+    # (factor, low_freq_factor, high_freq_factor, original_max_pos) or
+    # None. Set from HF config.json's rope_scaling (rope_type "llama3").
+    rope_scaling: Optional[tuple] = None
+    norm_eps: float = 1e-5
+    max_seq_len: int = 8192
+    tie_embeddings: bool = False
+    # Qwen2-family attention: biases on the q/k/v projections only (HF
+    # ``Qwen2Attention``); Llama/Mistral run bias-free. The scan-stacked
+    # layer dict simply carries three extra [L, heads*hd] leaves.
+    qkv_bias: bool = False
+    # Model family ("llama" | "qwen2" | "mistral" | "mixtral") — drives the
+    # chat template. Set from HF config.json's authoritative ``model_type``
+    # by the loader; name sniffing is only the fallback for bare names.
+    family: str = "llama"
+    # Mixture-of-Experts (Mixtral): 0 = dense FFN. When > 0 the FFN leaves
+    # gain a leading expert axis ([L, E, D, F]) plus a router [L, D, E].
+    # The port does not serve MoE yet (init and forward refuse it).
+    n_experts: int = 0
+    top_k_experts: int = 2
+    # Per-expert queue headroom. 0 (default) = dropless: capacity N, exact
+    # Mixtral/transformers numerics at E× the buffer cost. Perf-tuned
+    # serving can trade exactness for smaller dispatch buffers by setting
+    # e.g. 1.25–2.0 (token-expert assignments past the capacity drop).
+    capacity_factor: float = 0.0
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.n_heads
+
+    @property
+    def matmul_params(self) -> int:
+        """Analytic count of params that participate in matmuls *per token*
+        (layer projections + LM head; excludes the embedding gather) — the
+        ``N`` in the decode-FLOPs model ``2·N`` used for MFU reporting. For
+        MoE this counts the ``top_k`` ACTIVE experts (the FLOPs actually
+        spent per token), not the full expert bank."""
+        D, hd = self.dim, self.head_dim
+        ffn_mult = self.top_k_experts if self.n_experts else 1
+        per_layer = (
+            D * self.n_heads * hd          # wq
+            + 2 * D * self.n_kv_heads * hd  # wk, wv
+            + self.n_heads * hd * D         # wo
+            + ffn_mult * 3 * D * self.ffn_dim  # active FFN experts
+            + (D * self.n_experts if self.n_experts else 0)  # router
+        )
+        return self.n_layers * per_layer + D * self.vocab_size
+
+    @property
+    def total_params(self) -> int:
+        """All weights, including every expert (the memory-side count)."""
+        D = self.dim
+        embed = self.vocab_size * D * (1 if self.tie_embeddings else 2)
+        norms = self.n_layers * 2 * D + D
+        ffn_mult = self.n_experts if self.n_experts else 1
+        ffn_delta = (ffn_mult - (self.top_k_experts if self.n_experts else 1)
+                     ) * 3 * D * self.ffn_dim * self.n_layers
+        return (self.matmul_params - D * self.vocab_size + embed + norms
+                + ffn_delta)
+
+
+CONFIGS: dict[str, LlamaConfig] = {
+    "llama3-8b-instruct": LlamaConfig(
+        name="llama3-8b-instruct", vocab_size=128_256, dim=4096, n_layers=32,
+        n_heads=32, n_kv_heads=8, ffn_dim=14_336,
+    ),
+    "llama3-70b-instruct": LlamaConfig(
+        name="llama3-70b-instruct", vocab_size=128_256, dim=8192, n_layers=80,
+        n_heads=64, n_kv_heads=8, ffn_dim=28_672,
+    ),
+    "llama3-1b-bench": LlamaConfig(
+        # Small-dim stand-in for quick single-chip bench sanity runs.
+        name="llama3-1b-bench", vocab_size=128_256, dim=2048, n_layers=16,
+        n_heads=32, n_kv_heads=8, ffn_dim=8192,
+    ),
+    # Llama-3.1/3.2: same blocks with NTK-by-parts rope scaling for 128k
+    # contexts; 3.2 ties embeddings. (8B dims match llama3-8b.)
+    "llama3.1-8b-instruct": LlamaConfig(
+        name="llama3.1-8b-instruct", vocab_size=128_256, dim=4096,
+        n_layers=32, n_heads=32, n_kv_heads=8, ffn_dim=14_336,
+        max_seq_len=131_072, rope_scaling=(8.0, 1.0, 4.0, 8192),
+    ),
+    "llama3.1-70b-instruct": LlamaConfig(
+        name="llama3.1-70b-instruct", vocab_size=128_256, dim=8192,
+        n_layers=80, n_heads=64, n_kv_heads=8, ffn_dim=28_672,
+        max_seq_len=131_072, rope_scaling=(8.0, 1.0, 4.0, 8192),
+    ),
+    # Llama-3.3-70B ships the 3.1-70B architecture exactly (dims, rope
+    # scaling, 128k window) — served under its own name for HF parity.
+    "llama3.3-70b-instruct": LlamaConfig(
+        name="llama3.3-70b-instruct", vocab_size=128_256, dim=8192,
+        n_layers=80, n_heads=64, n_kv_heads=8, ffn_dim=28_672,
+        max_seq_len=131_072, rope_scaling=(8.0, 1.0, 4.0, 8192),
+    ),
+    "llama3.2-1b-instruct": LlamaConfig(
+        name="llama3.2-1b-instruct", vocab_size=128_256, dim=2048,
+        n_layers=16, n_heads=32, n_kv_heads=8, ffn_dim=8192,
+        max_seq_len=131_072, rope_scaling=(32.0, 1.0, 4.0, 8192),
+        tie_embeddings=True,
+    ),
+    "llama3.2-3b-instruct": LlamaConfig(
+        name="llama3.2-3b-instruct", vocab_size=128_256, dim=3072,
+        n_layers=28, n_heads=24, n_kv_heads=8, ffn_dim=8192,
+        max_seq_len=131_072, rope_scaling=(32.0, 1.0, 4.0, 8192),
+        tie_embeddings=True,
+    ),
+    "llama3-test": LlamaConfig(
+        # Tiny config for CPU tests; vocab matches the byte tokenizer (262).
+        # max_seq_len covers real agent/orchestrator prompts (byte tokenizer:
+        # 1 token per byte), so live-eval e2e runs fit without truncation.
+        name="llama3-test", vocab_size=262, dim=64, n_layers=2, n_heads=4,
+        n_kv_heads=2, ffn_dim=128, max_seq_len=8192, rope_theta=10_000.0,
+    ),
+    # Qwen2 family: identical block structure with q/k/v projection biases
+    # and ChatML prompts (HF ``Qwen2ForCausalLM``; config.json model_type
+    # "qwen2"). Serving/training/TP paths are shared with Llama.
+    "qwen2-7b-instruct": LlamaConfig(
+        name="qwen2-7b-instruct", vocab_size=152_064, dim=3584, n_layers=28,
+        n_heads=28, n_kv_heads=4, ffn_dim=18_944, rope_theta=1_000_000.0,
+        max_seq_len=32_768, qkv_bias=True, family="qwen2",
+    ),
+    # Qwen2.5-7B ships the same architecture/dims as Qwen2-7B (vocab,
+    # qkv biases, theta) — served under its own name for HF parity.
+    "qwen2.5-7b-instruct": LlamaConfig(
+        name="qwen2.5-7b-instruct", vocab_size=152_064, dim=3584,
+        n_layers=28, n_heads=28, n_kv_heads=4, ffn_dim=18_944,
+        rope_theta=1_000_000.0, max_seq_len=32_768, qkv_bias=True,
+        family="qwen2",
+    ),
+    "qwen2.5-14b-instruct": LlamaConfig(
+        name="qwen2.5-14b-instruct", vocab_size=152_064, dim=5120,
+        n_layers=48, n_heads=40, n_kv_heads=8, ffn_dim=13_824,
+        rope_theta=1_000_000.0, max_seq_len=32_768, qkv_bias=True,
+        family="qwen2",
+    ),
+    "qwen2.5-32b-instruct": LlamaConfig(
+        name="qwen2.5-32b-instruct", vocab_size=152_064, dim=5120,
+        n_layers=64, n_heads=40, n_kv_heads=8, ffn_dim=27_648,
+        rope_theta=1_000_000.0, max_seq_len=32_768, qkv_bias=True,
+        family="qwen2",
+    ),
+    "qwen2-test": LlamaConfig(
+        name="qwen2-test", vocab_size=262, dim=64, n_layers=2, n_heads=4,
+        n_kv_heads=2, ffn_dim=128, max_seq_len=8192, rope_theta=10_000.0,
+        qkv_bias=True, family="qwen2",
+    ),
+    # Mistral v0.3: Llama block structure exactly (GQA, no bias), different
+    # dims/vocab/theta. Sliding-window variants (v0.1) are served with full
+    # attention — exact for contexts ≤ the window (4096).
+    "mistral-7b-instruct": LlamaConfig(
+        name="mistral-7b-instruct", vocab_size=32_768, dim=4096, n_layers=32,
+        n_heads=32, n_kv_heads=8, ffn_dim=14_336, rope_theta=1_000_000.0,
+        max_seq_len=32_768, family="mistral",
+    ),
+    # Mixtral 8x7B: Mistral attention + 8-expert top-2 MoE FFN.
+    "mixtral-8x7b-instruct": LlamaConfig(
+        name="mixtral-8x7b-instruct", vocab_size=32_000, dim=4096,
+        n_layers=32, n_heads=32, n_kv_heads=8, ffn_dim=14_336,
+        rope_theta=1_000_000.0, max_seq_len=32_768, family="mixtral",
+        n_experts=8, top_k_experts=2,
+    ),
+    "mixtral-test": LlamaConfig(
+        name="mixtral-test", vocab_size=262, dim=64, n_layers=2, n_heads=4,
+        n_kv_heads=2, ffn_dim=128, max_seq_len=8192, rope_theta=10_000.0,
+        family="mixtral", n_experts=4, top_k_experts=2,
+    ),
+}
+
+
+def get_config(name: str) -> LlamaConfig:
+    if name not in CONFIGS:
+        raise KeyError(f"Unknown model {name!r}; known: {sorted(CONFIGS)}")
+    return CONFIGS[name]
+
+
+def _layer_shapes(cfg: LlamaConfig) -> dict[str, tuple[tuple[int, ...], int]]:
+    """The stacked dense layer matrices as ``name -> (shape, fan_in)``."""
+    L, D, KV, F = cfg.n_layers, cfg.dim, cfg.n_kv_heads, cfg.ffn_dim
+    H, hd = cfg.n_heads, cfg.head_dim
+    return {
+        "wq": ((L, D, H * hd), D),
+        "wk": ((L, D, KV * hd), D),
+        "wv": ((L, D, KV * hd), D),
+        "wo": ((L, H * hd, D), H * hd),
+        "w_gate": ((L, D, F), D),
+        "w_up": ((L, D, F), D),
+        "w_down": ((L, F, D), F),
+    }
+
+
+def _require_dense(cfg: LlamaConfig) -> None:
+    if cfg.n_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: mixture-of-experts models are not ported yet")
+
+
+def init_params(cfg: LlamaConfig, dtype: torch.dtype = torch.bfloat16,
+                device="cuda", generator: Optional[torch.Generator] = None
+                ) -> Params:
+    """Random-init params (scaled normal, ``1/sqrt(fan_in)``) directly on
+    ``device``: each layer slice is drawn in float32 and cast into the
+    stacked ``dtype`` tensor, so a full-width model never exists in float32
+    or on the host. ``generator`` must live on ``device``."""
+    _require_dense(cfg)
+    device = torch.device(device)
+
+    def dense(shape, fan_in):
+        out = torch.empty(shape, dtype=dtype, device=device)
+        for part in (out if len(shape) == 3 else out[None]):
+            part.copy_(torch.randn(part.shape, generator=generator,
+                                   device=device) / math.sqrt(fan_in))
+        return out
+
+    L, D = cfg.n_layers, cfg.dim
+    layers: dict[str, torch.Tensor] = {
+        name: dense(shape, fan_in)
+        for name, (shape, fan_in) in _layer_shapes(cfg).items()}
+    layers["attn_norm"] = torch.ones((L, D), dtype=torch.float32, device=device)
+    layers["mlp_norm"] = torch.ones((L, D), dtype=torch.float32, device=device)
+    if cfg.qkv_bias:
+        hd = cfg.head_dim
+        layers["bq"] = torch.zeros((L, cfg.n_heads * hd), dtype=dtype, device=device)
+        layers["bk"] = torch.zeros((L, cfg.n_kv_heads * hd), dtype=dtype, device=device)
+        layers["bv"] = torch.zeros((L, cfg.n_kv_heads * hd), dtype=dtype, device=device)
+    params: Params = {
+        "embed": dense((cfg.vocab_size, D), D),
+        "layers": layers,
+        "final_norm": torch.ones((D,), dtype=torch.float32, device=device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense((D, cfg.vocab_size), D)
+    return params
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm in float32, cast back to ``x``'s dtype."""
+    xf = x.float()
+    norm = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (norm * weight).to(x.dtype)
+
+
+def ffn_block(y: torch.Tensor, lp: dict, cfg: LlamaConfig) -> torch.Tensor:
+    """Dense SwiGLU FFN; the residual is added by the caller."""
+    _require_dense(cfg)
+    return (torch.nn.functional.silu(y @ lp["w_gate"]) * (y @ lp["w_up"])) @ lp["w_down"]
+
+
+def lm_head_logits(params: Params, cfg: LlamaConfig,
+                   hidden: torch.Tensor) -> torch.Tensor:
+    """Final norm + (tied or untied) LM head. The product runs in the
+    activation dtype; the logits are cast to float32 after it."""
+    h = rms_norm(hidden, params["final_norm"], cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return (h @ head).float()
+
+
+@torch.no_grad()
+def forward_hidden(
+    params: Params,
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,  # [B, T] int token ids for the current chunk
+    positions: torch.Tensor,  # [B, T] int32 absolute positions
+    kv_k: torch.Tensor,  # [n_layers, num_pages * page_size, n_kv, head_dim]
+    kv_v: torch.Tensor,  # same
+    page_tables: torch.Tensor,  # [B, max_pages(+1)] int32
+    ctx_lens: torch.Tensor,  # [B] int32 cache length AFTER this chunk
+    page_size: int,
+) -> torch.Tensor:
+    """Transformer stack over one paged chunk, WITHOUT the LM head.
+
+    Returns hidden [B, T, D]. ``kv_k``/``kv_v`` are updated IN PLACE: each
+    layer's chunk K/V are written into its pool slice before attention.
+    T = 1 runs the decode kernel, T > 1 the chunk kernel; on CPU tensors
+    both run their plain versions."""
+    _require_dense(cfg)
+    b, t = tokens.shape
+    hd, n_kv, n_q = cfg.head_dim, cfg.n_kv_heads, cfg.n_heads
+    h = params["embed"][tokens]
+    cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta, cfg.rope_scaling)
+    layers = params["layers"]
+    for i in range(cfg.n_layers):
+        lp = {name: w[i] for name, w in layers.items()}
+        x = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
+        q, k, v = x @ lp["wq"], x @ lp["wk"], x @ lp["wv"]
+        if cfg.qkv_bias:
+            q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+        q = rotate(q.reshape(b, t, n_q, hd), cos, sin)
+        k = rotate(k.reshape(b, t, n_kv, hd), cos, sin)
+        v = v.reshape(b, t, n_kv, hd)
+        write_kv_pages_batch(kv_k[i], k, positions, page_tables, page_size)
+        write_kv_pages_batch(kv_v[i], v, positions, page_tables, page_size)
+        if t == 1:
+            attn = paged_decode_attention(q[:, 0], kv_k[i], kv_v[i],
+                                          page_tables, ctx_lens, page_size)
+        else:
+            attn = paged_chunk_attention(q, kv_k[i], kv_v[i], page_tables,
+                                         ctx_lens, positions, page_size)
+        h = h + attn.reshape(b, t, n_q * hd) @ lp["wo"]
+        y = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
+        h = h + ffn_block(y, lp, cfg)
+    return h
+
+
+@torch.no_grad()
+def forward_impl(
+    params: Params,
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,
+    positions: torch.Tensor,
+    kv_k: torch.Tensor,
+    kv_v: torch.Tensor,
+    page_tables: torch.Tensor,
+    ctx_lens: torch.Tensor,
+    page_size: int,
+) -> torch.Tensor:
+    """One forward chunk: logits [B, T, vocab] float32. The KV pools are
+    updated in place (see :func:`forward_hidden`)."""
+    h = forward_hidden(params, cfg, tokens, positions, kv_k, kv_v,
+                       page_tables, ctx_lens, page_size)
+    return lm_head_logits(params, cfg, h)
