@@ -5,8 +5,8 @@
 
 Phases (any failure exits non-zero; one JSON object per phase on stdout):
 
-1. build the paged attention kernels from ``runbookai_tpu_torch/csrc`` with
-   nvcc for sm_90a (ptxas report in ``chiprun_out/ptxas.txt``);
+1. build every kernel from ``runbookai_tpu_torch/csrc`` with nvcc for
+   sm_90a, one nvcc per source (ptxas report in ``OUT_DIR/ptxas.txt``);
 2. hold the decode kernel against its plain version at the serving shapes
    (B=8, 32 query / 8 kv heads, head_dim 128, 16-token pages, 513-wide
    tables, ctx 0..8191) for bf16 and f32 pools, and time it;
@@ -14,15 +14,26 @@ Phases (any failure exits non-zero; one JSON object per phase on stdout):
    offsets 0 and 512, a T=8 verify from ctx-1, and a chunk with a pad tail,
    and time the prefill and the verify inputs; both kernel phases show that
    the tolerance rejects a result with the last page dropped;
-4. check the forward on the card (both kernels) against the checked-in HF
-   golden logits and against the same forward on the CPU;
-5. serve llama3-8b-instruct at full width (random weights from a seed)
+4. the same two checks over int8 pools (values + one f32 scale per token
+   and kv head, quantized from random bf16) with bf16 and f32 queries: the
+   int8 decode kernel (K3) and the chunk kernel's int8 instantiation;
+5. hold the int8 weight matmul kernel (K5) against its plain version at
+   the 8B's four (K, N) shapes and M = 5, 8, 64, 256, show that the
+   tolerance rejects a result with the last K slice dropped, and time it
+   rotating over 32 layer slices so that no call finds its weight in L2;
+6. check the forward on the card (both kernels) against the checked-in HF
+   golden logits and against the same forward on the CPU, then the same
+   forward with int8 weights over an int8 pool against the CPU;
+7. serve llama3-8b-instruct at full width (random weights from a seed)
    through ``TorchCudaClient.chat``: 5 concurrent greedy requests of 64 to
    1024 prompt tokens, 32 new tokens each. Kernel launch counts are zeroed
    just before and read just after; both must rise;
-6. serve the same requests once more under torch.profiler: device time by
+8. serve the same requests once more under torch.profiler: device time by
    kernel class and the device's idle share. Both serving phases fail if
-   the engine loop crashed or a request was aborted.
+   the engine loop crashed or a request was aborted;
+9. phases 7 and 8 again with int8 weights and an int8 KV pool
+   (``TorchCudaClient.build(dtype="int8", kv_cache_dtype="int8")``): the
+   int8 kernels' counts must rise and the bf16 attention counts stay 0.
 
 Then it prints the kernels' line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -55,6 +66,13 @@ DECODE_CTX = [0, 1, 16, 17, 1000, 8191, 300, 4097]
 TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-3, 1e-2)}
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # H100 SXM, dense
 PEAK_BYTES_S = 3.35e12
+# int8 weight matmul: llama3-8b-instruct's (K, N) per layer matrix, and the
+# rows of a decode step (8 slots), of a T=8 verify (64) and two edges.
+QMM_SHAPES = {"wq": (4096, 4096), "wk": (4096, 1024), "wv": (4096, 1024),
+              "wo": (4096, 4096), "w_gate": (4096, 14336), "w_up": (4096, 14336),
+              "w_down": (14336, 4096)}
+QMM_ROWS = (8, 64, 5, 256)
+QMM_LAYERS = 32
 
 
 def emit(obj: dict) -> None:
@@ -75,6 +93,26 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Device time per call of ``fn``: the kernels it launches, summed by
+    torch.profiler over ``iters`` calls, without the host's gaps between
+    them (for calls short enough that the host's launch rate sets the
+    CUDA-event time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total_us / iters / 1e3
 
 
 def bound(n_bytes: float, flops: float, dtype_name: str) -> tuple[float, str]:
@@ -142,11 +180,28 @@ def make_pool(gen, dtype, ctx_lens, device):
     return k, v, tables
 
 
+def dequantized(pool, dtype):
+    """A pool as one tensor of ``dtype`` (an int8 pool dequantized)."""
+    if isinstance(pool, tuple):
+        return (pool[0].float() * pool[1][..., None]).to(dtype)
+    return pool
+
+
+def token_bytes(pool) -> int:
+    """Bytes of one cached token's K (or V) over every kv head."""
+    if isinstance(pool, tuple):
+        vals, scales = pool
+        return N_KV * (HD * vals.element_size() + scales.element_size())
+    return N_KV * HD * pool.element_size()
+
+
 def gather_for_library(q4, k, v, tables, ctx_lens, kv_len):
     """[B, n_q, *, hd] operands for scaled_dot_product_attention (K/V
-    gathered through the tables and repeated over the GQA group)."""
+    dequantized, gathered through the tables and repeated over the GQA
+    group)."""
     import torch
 
+    k, v = dequantized(k, q4.dtype), dequantized(v, q4.dtype)
     n_pages = -(-kv_len // PS)
     rows = (tables[:, :n_pages].long()[:, :, None] * PS
             + torch.arange(PS, device=k.device)).reshape(len(ctx_lens), -1)
@@ -156,53 +211,69 @@ def gather_for_library(q4, k, v, tables, ctx_lens, kv_len):
     return q4.permute(0, 2, 1, 3).contiguous(), kk, vv
 
 
-def phase_build(pa) -> dict:
+def phase_build() -> dict:
+    from runbookai_tpu_torch.ops import build
+
     t0 = time.perf_counter()
-    path, report = pa.build()
+    path, report = build.build()
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "ptxas.txt").write_text(report)
     return {"phase": "build", "library": str(path.relative_to(ROOT)),
             "seconds": time.perf_counter() - t0}
 
 
-def phase_decode(pa, torch) -> dict:
+def decode_case(pa, torch, q, k, v, tables, ctx, name: str) -> dict:
+    """Decode kernel against its plain version on one pool (a tensor or an
+    int8 tuple), the dropped-last-page check, and its times and bound."""
     import torch.nn.functional as F
 
+    dev = q.device
+    out = pa.paged_decode_attention(q, k, v, tables, ctx, PS)
+    ref = pa.plain_paged_attention(q[:, None], k, v, tables, ctx, None, PS)[:, 0]
+    torch.cuda.synchronize()
+    err = compare(out, ref, name, f"decode {name}")
+    if bool(out[0].abs().max() != 0):
+        raise AssertionError("decode: a ctx-0 row must be zeros")
+    wrong = drop_last_page(pa, q[:, None], k, v, tables, ctx, None,
+                           ref[:, None], name)
+    ms = time_ms(lambda: pa.paged_decode_attention(q, k, v, tables, ctx, PS))
+    plain_ms = time_ms(lambda: pa.plain_paged_attention(
+        q[:, None], k, v, tables, ctx, None, PS), iters=3, warmup=1)
+    q4, kk, vv = gather_for_library(q[:, None], k, v, tables, DECODE_CTX,
+                                    max(DECODE_CTX))
+    mask = (torch.arange(kk.shape[2], device=dev)[None, :] < ctx[:, None].long()
+            )[:, None, None, :]
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q4, kk, vv, attn_mask=mask), iters=5, warmup=1)
+    del kk, vv
+    tokens = sum(DECODE_CTX)
+    n_bytes = (2 * q.numel() * q.element_size() + tokens * 2 * token_bytes(k)
+               + sum(-(-c // PS) for c in DECODE_CTX) * 4 + B * 4)
+    bound_ms, bound_by = bound(n_bytes, 4.0 * tokens * N_Q * HD, name)
+    return {"max_abs_err": err, "tol": TOL[name], "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "drop_last_page": wrong}
+
+
+def phase_decode(pa, torch, int8: bool = False) -> dict:
+    """K1 over bf16 and f32 pools or, with ``int8``, K3 over int8 pools
+    quantized from them, with queries of the same two types."""
+    from runbookai_tpu_torch.ops.attention import quantize_kv
+
     dev = torch.device(DEVICE)
-    gen = torch.Generator(device=dev).manual_seed(1)
+    gen = torch.Generator(device=dev).manual_seed(3 if int8 else 1)
     ctx = torch.tensor(DECODE_CTX, dtype=torch.int32, device=dev)
-    result: dict = {"phase": "decode_kernel", "ctx_lens": DECODE_CTX}
+    result: dict = {"phase": "decode_int8_kernel" if int8 else "decode_kernel",
+                    "ctx_lens": DECODE_CTX}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
         k, v, tables = make_pool(gen, dtype, DECODE_CTX, dev)
+        if int8:
+            k, v = quantize_kv(k), quantize_kv(v)
         q = torch.randn((B, N_Q, HD), generator=gen, device=dev).to(dtype)
-        out = pa.paged_decode_attention(q, k, v, tables, ctx, PS)
-        ref = pa.plain_paged_attention(q[:, None], k, v, tables, ctx, None, PS)[:, 0]
-        torch.cuda.synchronize()
-        err = compare(out, ref, name, f"decode {name}")
-        if bool(out[0].abs().max() != 0):
-            raise AssertionError("decode: a ctx-0 row must be zeros")
-        wrong = drop_last_page(pa, q[:, None], k, v, tables, ctx, None,
-                               ref[:, None], name)
-        ms = time_ms(lambda: pa.paged_decode_attention(q, k, v, tables, ctx, PS))
-        plain_ms = time_ms(lambda: pa.plain_paged_attention(
-            q[:, None], k, v, tables, ctx, None, PS), iters=3, warmup=1)
-        q4, kk, vv = gather_for_library(q[:, None], k, v, tables, DECODE_CTX,
-                                        max(DECODE_CTX))
-        mask = (torch.arange(kk.shape[2], device=dev)[None, :] < ctx[:, None].long()
-                )[:, None, None, :]
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            q4, kk, vv, attn_mask=mask), iters=5, warmup=1)
-        del kk, vv
-        size = k.element_size()
-        tokens = sum(DECODE_CTX)
-        n_bytes = (2 * q.numel() * q.element_size() + tokens * N_KV * HD * 2 * size
-                   + sum(-(-c // PS) for c in DECODE_CTX) * 4 + B * 4)
-        bound_ms, bound_by = bound(n_bytes, 4.0 * tokens * N_Q * HD, name)
-        result[name] = {"max_abs_err": err, "tol": TOL[name], "ms": ms,
-                        "plain_ms": plain_ms, "library_ms": library_ms,
-                        "bound_ms": bound_ms, "bound_by": bound_by,
-                        "drop_last_page": wrong}
+        result[name] = decode_case(pa, torch, q, k, v, tables, ctx, name)
+        del k, v
     return result
 
 
@@ -250,23 +321,28 @@ def time_chunk(pa, torch, q, k, v, tables, ctx, pos, dtype_name: str) -> dict:
     del kk, vv
     ctx_l, start_l = ctx.tolist(), q_start.tolist()
     pairs = sum(min(c, s + i + 1) for c, s in zip(ctx_l, start_l) for i in range(t))
-    n_bytes = (2 * q.numel() * q.element_size()
-               + sum(ctx_l) * N_KV * HD * 2 * k.element_size()
+    n_bytes = (2 * q.numel() * q.element_size() + sum(ctx_l) * 2 * token_bytes(k)
                + sum(-(-c // PS) for c in ctx_l) * 4 + 2 * len(ctx_l) * 4)
     bound_ms, bound_by = bound(n_bytes, 4.0 * pairs * N_Q * HD, dtype_name)
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def phase_chunk(pa, torch) -> dict:
+def phase_chunk(pa, torch, int8: bool = False) -> dict:
+    """K2 over bf16 and f32 pools or, with ``int8``, its int8 instantiation
+    over int8 pools quantized from them."""
+    from runbookai_tpu_torch.ops.attention import quantize_kv
+
     dev = torch.device(DEVICE)
-    gen = torch.Generator(device=dev).manual_seed(2)
-    result: dict = {"phase": "chunk_kernel"}
+    gen = torch.Generator(device=dev).manual_seed(4 if int8 else 2)
+    result: dict = {"phase": "chunk_int8_kernel" if int8 else "chunk_kernel"}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
         errs, wrong, timed = {}, {}, {}
         for kind in ("prefill", "verify", "pad_tail"):
             q, k, v, tables, ctx, pos, real = chunk_inputs(torch, dev, gen, dtype, kind)
+            if int8:
+                k, v = quantize_kv(k), quantize_kv(v)
             q_start = pos[:, 0].contiguous()
             out = pa.paged_chunk_attention(q, k, v, tables, ctx, pos, PS)
             ref = pa.plain_paged_attention(q, k, v, tables, ctx, q_start, PS)
@@ -286,6 +362,93 @@ def phase_chunk(pa, torch) -> dict:
                         "tol": TOL[name], **timed["prefill"], "verify": timed["verify"],
                         "drop_last_page": wrong}
     return result
+
+
+def qmm_case(qm, torch, x, q, s, deq, name: str) -> dict:
+    """K5 against its plain version on layer 0 of a stacked weight, the
+    dropped-K-slice check, and kernel, plain and library (``torch.matmul``
+    by ``deq``, the weights dequantized to bf16) device times, each call on
+    the next of the 32 layer slices; ``events_ms`` is the kernel's CUDA-event
+    time over back-to-back calls, which the host's launch rate can set."""
+    m, k = x.shape
+    n = q.shape[2]
+    out = qm.qmm_int8(x, q[0], s[0])
+    ref = qm.plain_qmm_int8(x, q[0], s[0])
+    torch.cuda.synchronize()
+    err = compare(out, ref, name, f"qmm [{m}, {k}] @ [{k}, {n}]")
+    # A wrong kernel: the plain version with the last bk slice of K dropped.
+    bk = qm._pick(qm._BK_CANDIDATES, k)
+    wrong = qm.plain_qmm_int8(x[:, :k - bk].contiguous(), q[0, :k - bk], s[0])
+    over, diff = excess(wrong, ref, name)
+    if not all(bool(over[i].max() > 0) for i in range(m)):
+        raise AssertionError(f"qmm [{m}, {k}] @ [{k}, {n}]: the tolerance accepts a "
+                             f"result with the last {bk} rows of K dropped")
+
+    def rotating(fn, *stacked):
+        layer = [0]
+
+        def call():
+            i = layer[0] = (layer[0] + 1) % QMM_LAYERS
+            return fn(x, *(w[i] for w in stacked))
+        return call
+
+    bound_ms, bound_by = bound(m * k * 2 + k * n + n * 4 + m * n * 2,
+                               2.0 * m * k * n, name)
+    return {"max_abs_err": err,
+            "ms": device_ms(rotating(qm.qmm_int8, q, s), iters=2 * QMM_LAYERS),
+            "events_ms": time_ms(rotating(qm.qmm_int8, q, s), iters=4 * QMM_LAYERS,
+                                 warmup=QMM_LAYERS),
+            "plain_ms": device_ms(rotating(qm.plain_qmm_int8, q, s), iters=8),
+            "library_ms": device_ms(rotating(torch.matmul, deq), iters=2 * QMM_LAYERS),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "wrong_min_abs_err": min(float(diff[i].max()) for i in range(m)),
+            "splits": qm.qmm_splits(m, k, n)}
+
+
+def gpu_clocks() -> str:
+    """SM clock, power draw and temperature, read beside a timed phase."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_qmm(torch) -> dict:
+    """K5 at the 8B's four (K, N) shapes and QMM_ROWS rows, bf16 x, each
+    weight stacked over 32 layers (int8 with f32 scales) so that timed calls
+    rotate through 32 distinct matrices, as the decode forward does; the
+    library yardstick moves twice the weight bytes. The bf16 tolerance
+    holds because both versions sum in f32 and round once to bf16."""
+    from runbookai_tpu_torch.ops import qmm as qm
+
+    clocks_before = gpu_clocks()
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    name = "bfloat16"
+    cases: dict = {}
+    for k, n in sorted(set(QMM_SHAPES.values())):
+        q = torch.empty((QMM_LAYERS, k, n), dtype=torch.int8, device=dev)
+        for part in q:
+            part.random_(-127, 128, generator=gen)
+        s = (torch.rand((QMM_LAYERS, 1, n), generator=gen, device=dev) + 0.5) \
+            * (3 ** 0.5 / (127 * k ** 0.5))
+        deq = q.to(torch.bfloat16) * s.to(torch.bfloat16)
+        for m in QMM_ROWS:
+            x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+            cases[f"{m}x{k}x{n}"] = qmm_case(qm, torch, x, q, s, deq, name)
+        del q, s, deq
+    per_layer = {}
+    for m, key in ((8, "decode"), (64, "verify")):  # one layer's seven products
+        rows = [cases[f"{m}x{k}x{n}"] for k, n in QMM_SHAPES.values()]
+        per_layer[key] = {f: sum(r[f] for r in rows)
+                          for f in ("ms", "events_ms", "plain_ms", "library_ms",
+                                    "bound_ms")}
+        per_layer[key]["bound_by"] = ("bytes" if all(r["bound_by"] == "bytes" for r in rows)
+                                      else "operations")
+    return {"phase": "qmm_kernel", "tol": TOL[name], "layers_rotated": QMM_LAYERS,
+            "clocks_before_after": [clocks_before, gpu_clocks()],
+            "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+            "per_layer": per_layer, "cases": cases}
 
 
 def phase_forward(torch) -> dict:
@@ -348,19 +511,118 @@ def prompts() -> list[str]:
             words * 8]
 
 
+def phase_forward_int8(torch) -> dict:
+    """hf-tiny fixtures loaded with int8 weights, prefill then decode over an
+    int8 pool in f32: the card (qmm, int8 chunk and decode kernels) against
+    the same forward on the CPU (plain versions)."""
+    import numpy as np
+
+    from runbookai_tpu_torch.engine.kv_cache import PagePool
+    from runbookai_tpu_torch.models.hf_loader import config_from_hf, load_params
+    from runbookai_tpu_torch.models.llama import forward_impl
+
+    out: dict = {"phase": "forward_int8"}
+    for name in ("hf-tiny-untied", "hf-tiny-qwen2"):
+        d = ROOT / "tests" / "fixtures" / name
+        ids = torch.from_numpy(np.load(d / "expected_logits.npz")["input_ids"]).long()
+        b, t = ids.shape
+        ps, max_pages = 4, 16
+        tables = torch.zeros((b, max_pages + 1), dtype=torch.int32)
+        for i in range(b):
+            tables[i, : max_pages] = torch.arange(1 + i * max_pages, 1 + (i + 1) * max_pages)
+        logits, pools = {}, {}
+        reset_counts()
+        for dev in (DEVICE, "cpu"):
+            cfg, params = load_params(d, config_from_hf(d, name=name), dtype=torch.float32,
+                                      device=dev, quantize_int8=True)
+            pool = PagePool.create(cfg.n_layers, 1 + b * max_pages, ps, cfg.n_kv_heads,
+                                   cfg.head_dim, dtype=torch.int8, device=dev)
+            tab = tables.to(dev)
+            pos = torch.arange(t, dtype=torch.int32, device=dev).expand(b, t).contiguous()
+            pre = forward_impl(params, cfg, ids.to(dev), pos, pool.kv_k, pool.kv_v, tab,
+                               torch.full((b,), t, dtype=torch.int32, device=dev), ps)
+            nxt = pre[:, -1].argmax(-1)[:, None]
+            dec = forward_impl(params, cfg, nxt, torch.full((b, 1), t, dtype=torch.int32,
+                                                          device=dev),
+                               pool.kv_k, pool.kv_v, tab,
+                               torch.full((b,), t + 1, dtype=torch.int32, device=dev), ps)
+            logits[dev] = (pre.cpu(), dec.cpu())
+            pools[dev] = pool.kv_k[0].cpu()
+        launched = counts()
+        for kernel in ("paged_chunk_attention_int8", "paged_decode_attention_int8",
+                       "qmm_int8"):
+            if not launched[kernel]:
+                raise AssertionError(f"{name}: the int8 forward skipped {kernel}")
+        flips = int((pools[DEVICE] != pools["cpu"]).sum())
+        err = float((logits[DEVICE][1] - logits["cpu"][1]).abs().max())
+        if not err <= 1e-4:
+            raise AssertionError(f"{name}: int8 decode logits card vs cpu {err:.3e} > "
+                                 f"1e-4 ({flips} int8 K values rounded apart)")
+        out[name] = {"decode_vs_cpu_max_abs_err": err,
+                     "prefill_vs_cpu_max_abs_err":
+                         float((logits[DEVICE][0] - logits["cpu"][0]).abs().max()),
+                     "k_values_rounded_apart": flips, "launches": launched}
+    return out
+
+
 async def serve(client, texts):
     t0 = time.perf_counter()
     resps = await asyncio.gather(*(client.chat("", u) for u in texts))
     return resps, time.perf_counter() - t0
 
 
-def phase_engine(pa, torch) -> dict:
+# The kernels each serving configuration (weights; KV pool of the same
+# type) must launch, and those it must not.
+SERVING = {
+    "bfloat16": dict(must=("paged_decode_attention", "paged_chunk_attention"),
+                     never=()),
+    "int8": dict(must=("paged_decode_attention_int8", "paged_chunk_attention_int8",
+                       "qmm_int8"),
+                 never=("paged_decode_attention", "paged_chunk_attention")),
+}
+
+
+def build_client(torch, weights: str):
+    """bf16 weights and pool, or int8 weights (bf16 activations) and pool,
+    through the entry point a user calls."""
     from runbookai_tpu_torch.model.torch_cuda import TorchCudaClient
 
+    if weights == "int8":
+        kw = dict(dtype="int8", kv_cache_dtype="int8")
+    else:
+        kw = dict(dtype=torch.bfloat16)
+    return TorchCudaClient.build(ENGINE_MODEL, device=DEVICE, seed=0, max_new_tokens=32,
+                                 **kw)
+
+
+def reset_counts() -> None:
+    from runbookai_tpu_torch.ops import paged_attention as pa
+    from runbookai_tpu_torch.ops import qmm as qm
+
+    pa.reset_launches()
+    qm.launches["qmm_int8"] = 0
+
+
+def counts() -> dict:
+    from runbookai_tpu_torch.ops import paged_attention as pa
+    from runbookai_tpu_torch.ops import qmm as qm
+
+    return {**pa.launches, **qm.launches}
+
+
+def free_device(torch) -> None:
+    """Release the previous phase's client before the next one builds."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_engine(torch, weights: str = "bfloat16") -> dict:
+    free_device(torch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    client = TorchCudaClient.build(ENGINE_MODEL, device=DEVICE,
-                                   dtype=torch.bfloat16, seed=0, max_new_tokens=32)
+    client = build_client(torch, weights)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     core = client.core
@@ -369,20 +631,25 @@ def phase_engine(pa, torch) -> dict:
     if min(prompt_tokens) < 64 or max(prompt_tokens) > 1024:
         raise AssertionError(f"prompt lengths {prompt_tokens} outside 64..1024")
 
-    pa.reset_launches()
+    reset_counts()
     resps, wall = asyncio.run(_serve_and_stop(client, texts))
-    counts = dict(pa.launches)
+    launched = counts()
 
     done, finished = check_served(client, resps, len(texts))
-    if counts["paged_decode_attention"] == 0 or counts["paged_chunk_attention"] == 0:
-        raise AssertionError(f"main path skipped a kernel: {counts}")
+    spec = SERVING[weights]
+    if (any(launched[k] == 0 for k in spec["must"])
+            or any(launched[k] for k in spec["never"])):
+        raise AssertionError(f"main path ({weights}) skipped a kernel or ran one of "
+                             f"the other configuration: {launched}")
     ttft = [r.usage["ttft_ms"] for r in resps]
-    return {"phase": "engine", "model": ENGINE_MODEL, "dtype": "bfloat16",
+    return {"phase": "engine" if weights == "bfloat16" else "engine_int8",
+            "model": ENGINE_MODEL, "dtype": weights,
+            "kv_dtype": str(core.ecfg.kv_dtype).split(".")[1],
             "requests": len(texts), "prompt_tokens": prompt_tokens,
             "completion_tokens": done,
             "finish_reasons": [r.finish_reason.value for r in finished],
             "wall_s": wall, "tokens_per_s": sum(done) / wall,
-            "ttft_ms": ttft, "build_s": build_s, "launches": counts,
+            "ttft_ms": ttft, "build_s": build_s, "launches": launched,
             "engine_metrics": core.metrics,
             "max_memory_allocated": torch.cuda.max_memory_allocated()}
 
@@ -409,20 +676,25 @@ def check_served(client, resps, n_requests: int):
     return done, finished
 
 
-def phase_profile(torch) -> dict:
+def kernel_class(name: str) -> str:
+    if "paged_attention_kernel" in name:  # template flag kCausal; int8_t pools
+        cls = "chunk_attention" if "true>" in name else "decode_attention"
+        return cls + ("_int8" if "signed char" in name or "int8" in name else "")
+    if "qmm" in name:  # before the matmul test: the int8 weight kernel
+        return "qmm"
+    if any(s in name.lower() for s in ("gemm", "nvjet", "cutlass", "xmma")):
+        return "matmul"
+    return "other"
+
+
+def phase_profile(torch, weights: str = "bfloat16") -> dict:
     """The engine phase's workload again, on a fresh client with the same
     seed, under torch.profiler: device time by kernel class, and the
     device's idle share of the serving wall time (profiler on)."""
-    import gc
-
     from torch.profiler import ProfilerActivity, profile
 
-    from runbookai_tpu_torch.model.torch_cuda import TorchCudaClient
-
-    gc.collect()
-    torch.cuda.empty_cache()
-    client = TorchCudaClient.build(ENGINE_MODEL, device=DEVICE,
-                                   dtype=torch.bfloat16, seed=0, max_new_tokens=32)
+    free_device(torch)
+    client = build_client(torch, weights)
     torch.cuda.synchronize()
     texts = prompts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -435,19 +707,14 @@ def phase_profile(torch) -> dict:
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         name, ms = e.name, e.time_range.elapsed_us() / 1e3
-        if "paged_attention_kernel" in name:  # template flag kCausal
-            cls = "chunk_attention" if "true>" in name else "decode_attention"
-        elif any(s in name.lower() for s in ("gemm", "nvjet", "cutlass", "xmma")):
-            cls = "matmul"
-        else:
-            cls = "other"
-        acc = classes.setdefault(cls, [0.0, 0])
+        acc = classes.setdefault(kernel_class(name), [0.0, 0])
         acc[0] += ms
         acc[1] += 1
         by_name[name] = by_name.get(name, 0.0) + ms
     busy = sum(v[0] for v in classes.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    return {"phase": "engine_profile", "wall_ms": wall * 1e3,
+    return {"phase": "engine_profile" if weights == "bfloat16" else "engine_int8_profile",
+            "wall_ms": wall * 1e3,
             "device_busy_ms": busy,
             "idle_share": (1.0 - busy / (wall * 1e3)) if busy else None,
             "by_class_ms": {k: v[0] for k, v in sorted(classes.items())},
@@ -482,25 +749,40 @@ def main() -> int:
 
     emit({"phase": "env", "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0)})
-    emit(phase_build(pa))
+    emit(phase_build())
     dec = phase_decode(pa, torch)
     emit(dec)
     chk = phase_chunk(pa, torch)
     emit(chk)
+    dec8 = phase_decode(pa, torch, int8=True)
+    emit(dec8)
+    chk8 = phase_chunk(pa, torch, int8=True)
+    emit(chk8)
+    qmm = phase_qmm(torch)
+    emit(qmm)
     emit(phase_forward(torch))
-    eng = phase_engine(pa, torch)
+    emit(phase_forward_int8(torch))
+    eng = phase_engine(torch)
     emit(eng)
     emit(phase_profile(torch))
+    eng8 = phase_engine(torch, weights="int8")
+    emit(eng8)
+    emit(phase_profile(torch, weights="int8"))
 
     src = "runbookai_tpu_torch/csrc/paged_attention.cu"
     pallas = "runbookai_tpu/ops/paged_attention_pallas.py"
     kernels = []
-    for name, res, line in (("paged_decode_attention", dec, 188),
-                            ("paged_chunk_attention", chk, 397)):
+    for name, res, line, served in (
+            ("paged_decode_attention", dec, 188, eng),
+            ("paged_chunk_attention", chk, 397, eng),
+            ("paged_decode_attention_int8", dec8, 240, eng8),
+            # The int8 instantiation of K2's CUDA kernel; the JAX package
+            # serves these calls on its XLA gather path, not a Pallas kernel.
+            ("paged_chunk_attention_int8", chk8, 397, eng8)):
         main_path = res["bfloat16"]
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": f"{pallas}:{line}",
-               "launches": eng["launches"][name],
+               "launches": served["launches"][name],
                "max_abs_err": max(res["bfloat16"]["max_abs_err"],
                                   res["float32"]["max_abs_err"]),
                "ms": main_path["ms"], "plain_ms": main_path["plain_ms"],
@@ -510,6 +792,14 @@ def main() -> int:
         if "verify" in main_path:  # the chunk kernel: the prefill above, T=8 here
             row["verify"] = main_path["verify"]
         kernels.append(row)
+    # K5 per decode layer: the sum over its seven products at M=8 (and, under
+    # "verify", at M=64), each timed on rotating layer slices.
+    kernels.append({"name": "qmm_int8", "route": "cuda",
+                    "source": "runbookai_tpu_torch/csrc/qmm.cu",
+                    "replaces": "runbookai_tpu/ops/qmm_pallas.py:83",
+                    "launches": eng8["launches"]["qmm_int8"],
+                    "max_abs_err": qmm["max_abs_err"], **qmm["per_layer"]["decode"],
+                    "verify": qmm["per_layer"]["verify"]})
     emit({"kernels": kernels})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

@@ -2,7 +2,8 @@
 
 Builds the client (random weights from ``--seed``, byte tokenizer), serves
 the prompt through the engine, prints the reply, then one JSON line of
-stats.
+stats. ``--dtype int8`` serves int8 layer weights with bfloat16 activations;
+``--kv-cache-dtype int8`` an int8 KV pool.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import time
 import torch
 
 from runbookai_tpu_torch.model.torch_cuda import TorchCudaClient
-from runbookai_tpu_torch.ops import paged_attention
+from runbookai_tpu_torch.ops import paged_attention, qmm
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -28,12 +29,20 @@ def _parser() -> argparse.ArgumentParser:
     chat.add_argument("--device", default="cuda")
     chat.add_argument("--max-new-tokens", type=int, default=128)
     chat.add_argument("--seed", type=int, default=0)
+    chat.add_argument("--dtype", choices=("auto", "int8"), default="auto",
+                      help="auto: float32 on cpu, bfloat16 on cuda; int8: int8 "
+                           "layer weights with bfloat16 activations")
+    chat.add_argument("--kv-cache-dtype", choices=("auto", "bf16", "int8"),
+                      default="auto", help="KV pool (auto: the activation dtype)")
     return p
 
 
 async def _chat(args) -> dict:
-    dtype = torch.float32 if args.device == "cpu" else torch.bfloat16
+    dtype = args.dtype
+    if dtype == "auto":
+        dtype = torch.float32 if args.device == "cpu" else torch.bfloat16
     client = TorchCudaClient.build(args.model, device=args.device, dtype=dtype,
+                                   kv_cache_dtype=args.kv_cache_dtype,
                                    seed=args.seed,
                                    max_new_tokens=args.max_new_tokens)
     t0 = time.perf_counter()
@@ -48,7 +57,7 @@ async def _chat(args) -> dict:
             "prompt_tokens": resp.usage["prompt_tokens"],
             "completion_tokens": n, "ttft_ms": resp.usage["ttft_ms"],
             "elapsed_s": elapsed, "tokens_per_s": n / elapsed if elapsed else 0.0,
-            "kernel_launches": dict(paged_attention.launches)}
+            "kernel_launches": {**paged_attention.launches, **qmm.launches}}
 
 
 def main(argv=None) -> int:

@@ -1,9 +1,20 @@
 // Ragged paged attention for the serving forward, hand-written for Hopper.
 //
-// Replaces the two Pallas TPU kernels of runbookai_tpu/ops/paged_attention_pallas.py:
+// Replaces the Pallas TPU kernels of runbookai_tpu/ops/paged_attention_pallas.py:
 //
-//   rb_paged_decode_attention  <- paged_decode_attention (_decode_kernel), T = 1
+//   rb_paged_decode_attention  <- paged_decode_attention (_decode_kernel), T = 1;
+//                                 over an int8 pool <- _paged_decode_attention_int8
+//                                 (_decode_kernel_int8)
 //   rb_paged_chunk_attention   <- paged_chunk_attention  (_chunk_kernel),  T > 1
+//
+// The pool holds float32 or bfloat16 K/V, or int8 K/V with one float32 absmax
+// scale per (token, kv head) (runbookai_tpu_torch/ops/attention.py quantize_kv).
+// An int8 value is widened and multiplied by its scale in float32 as its page
+// is loaded into shared memory, as _flash_page_accumulate does; the pool moves
+// one byte per value plus 4 / head_dim bytes of scale. The JAX package sends
+// T > 1 calls over an int8 pool to its XLA gather path; here they take the
+// chunk kernel's int8 instantiation, which agrees with it on every row that a
+// caller keeps (a fully masked row gives zeros instead of the mean of V).
 //
 // Both compute, for query row r of sequence b, an online (flash) softmax over
 // the first ctx_lens[b] cached tokens, read page by page through
@@ -24,15 +35,18 @@
 //
 // What bounds it: both are memory-bound on an H100. The bytes that must move
 // are the K/V pages of each sequence's context (n_kv * hd * 2 * itemsize per
-// token) over 3.35 TB/s. This first version computes on CUDA cores in f32
+// token, plus n_kv * 2 * 4 bytes of scales for an int8 pool) over 3.35 TB/s. This first version computes on CUDA cores in f32
 // from shared memory, with no tensor cores, TMA or split-K over pages; those
 // come later.
 //
-// Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
-//             -shared -Xcompiler -fPIC (runbookai_tpu_torch/ops/paged_attention.py)
+// Built with every source of csrc/ by runbookai_tpu_torch/ops/build.py (nvcc -gencode
+// arch=compute_90a,code=sm_90a -std=c++17 -O3, one shared library, ctypes).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -40,10 +54,11 @@ constexpr float kNegInf = -1e30f;
 constexpr int kDecodeThreads = 128;
 constexpr int kChunkThreads = 256;
 
-enum DType { kF32 = 0, kBF16 = 1 };
+enum DType { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
@@ -55,6 +70,8 @@ struct Args {
   const void* q;        // [B, T, n_q, hd]
   const void* k;        // [num_pages * ps, n_kv, hd]
   const void* v;        // same
+  const float* k_scale; // [num_pages * ps, n_kv], int8 pools only (else null)
+  const float* v_scale; // same
   const int* tables;    // [B, P]
   const int* ctx_lens;  // [B]
   const int* q_start;   // [B] position of each row's query 0 (chunk only)
@@ -127,9 +144,15 @@ __global__ void paged_attention_kernel(Args a) {
     __syncthreads();  // the previous page's K/V and probabilities are consumed
     for (int i = threadIdx.x; i < ps * hd; i += blockDim.x) {
       const int t = i / hd, d = i % hd;
-      const long long src = ((row0 + t) * a.n_kv + kvh) * hd + d;
-      k_s[t * ldk + d] = to_f32(kp[src]);
-      v_s[i] = to_f32(vp[src]);
+      const long long vec = (row0 + t) * a.n_kv + kvh;  // (token, kv head)
+      const long long src = vec * hd + d;
+      if constexpr (std::is_same<TKV, int8_t>::value) {
+        k_s[t * ldk + d] = to_f32(kp[src]) * a.k_scale[vec];
+        v_s[i] = to_f32(vp[src]) * a.v_scale[vec];
+      } else {
+        k_s[t * ldk + d] = to_f32(kp[src]);
+        v_s[i] = to_f32(vp[src]);
+      }
     }
     __syncthreads();
     for (int i = threadIdx.x; i < rows * ps; i += blockDim.x) {
@@ -200,6 +223,8 @@ int dispatch(const Args& a, int B, int threads, int q_dtype, int kv_dtype, cudaS
   if (B == 0 || a.T == 0) return 0;
   if (a.n_kv <= 0 || a.n_q % a.n_kv != 0 || a.hd <= 0 || a.ps <= 0 || a.tq <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if ((kv_dtype == kI8) != (a.k_scale != nullptr && a.v_scale != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (q_dtype == kF32 && kv_dtype == kF32)
     return launch<float, float, kCausal>(a, B, threads, stream);
   if (q_dtype == kF32 && kv_dtype == kBF16)
@@ -208,6 +233,10 @@ int dispatch(const Args& a, int B, int threads, int q_dtype, int kv_dtype, cudaS
     return launch<__nv_bfloat16, float, kCausal>(a, B, threads, stream);
   if (q_dtype == kBF16 && kv_dtype == kBF16)
     return launch<__nv_bfloat16, __nv_bfloat16, kCausal>(a, B, threads, stream);
+  if (q_dtype == kF32 && kv_dtype == kI8)
+    return launch<float, int8_t, kCausal>(a, B, threads, stream);
+  if (q_dtype == kBF16 && kv_dtype == kI8)
+    return launch<__nv_bfloat16, int8_t, kCausal>(a, B, threads, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -215,23 +244,28 @@ int dispatch(const Args& a, int B, int threads, int q_dtype, int kv_dtype, cudaS
 
 extern "C" {
 
-// q [B, n_q, hd]; out [B, n_q, hd]. Returns cudaGetLastError() of the launch.
-int rb_paged_decode_attention(const void* q, const void* k, const void* v, const void* tables,
-                              const void* ctx_lens, void* out, int B, int n_q, int n_kv, int hd,
-                              int ps, int P, float scale, int q_dtype, int kv_dtype,
-                              void* stream) {
-  Args a{q, k, v, static_cast<const int*>(tables), static_cast<const int*>(ctx_lens), nullptr,
+// q [B, n_q, hd]; out [B, n_q, hd]; k_scale / v_scale [num_pages * ps, n_kv] for an int8
+// pool, null otherwise. Returns cudaGetLastError() of the launch.
+int rb_paged_decode_attention(const void* q, const void* k, const void* v, const void* k_scale,
+                              const void* v_scale, const void* tables, const void* ctx_lens,
+                              void* out, int B, int n_q, int n_kv, int hd, int ps, int P,
+                              float scale, int q_dtype, int kv_dtype, void* stream) {
+  Args a{q, k, v, static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+         static_cast<const int*>(tables), static_cast<const int*>(ctx_lens), nullptr,
          out, 1, n_q, n_kv, hd, ps, P, 1, scale};
   return dispatch<false>(a, B, kDecodeThreads, q_dtype, kv_dtype,
                          static_cast<cudaStream_t>(stream));
 }
 
 // q [B, T, n_q, hd]; q_start [B]; out [B, T, n_q, hd]. tq query tokens per block.
-int rb_paged_chunk_attention(const void* q, const void* k, const void* v, const void* tables,
-                             const void* ctx_lens, const void* q_start, void* out, int B, int T,
-                             int n_q, int n_kv, int hd, int ps, int P, int tq, float scale,
-                             int q_dtype, int kv_dtype, void* stream) {
-  Args a{q, k, v, static_cast<const int*>(tables), static_cast<const int*>(ctx_lens),
+// k_scale / v_scale as for rb_paged_decode_attention.
+int rb_paged_chunk_attention(const void* q, const void* k, const void* v, const void* k_scale,
+                             const void* v_scale, const void* tables, const void* ctx_lens,
+                             const void* q_start, void* out, int B, int T, int n_q, int n_kv,
+                             int hd, int ps, int P, int tq, float scale, int q_dtype,
+                             int kv_dtype, void* stream) {
+  Args a{q, k, v, static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+         static_cast<const int*>(tables), static_cast<const int*>(ctx_lens),
          static_cast<const int*>(q_start), out, T, n_q, n_kv, hd, ps, P, tq, scale};
   return dispatch<true>(a, B, kChunkThreads, q_dtype, kv_dtype,
                         static_cast<cudaStream_t>(stream));

@@ -57,6 +57,7 @@ class EngineConfig:
     max_batch_slots: int = 8
     prefill_chunk: int = 256
     max_seq_len: int = 8192
+    # torch.int8: (values, scales) pools, see resolve_kv_dtype.
     kv_dtype: torch.dtype = torch.bfloat16
     # Reserve this many tokens of page headroom per admitted sequence so
     # decode can proceed a while before needing new allocations.
@@ -74,6 +75,22 @@ class EngineConfig:
     # Max rounds to skip re-probing speculation after rounds that produced
     # no usable drafts (1, 2, 4, ... up to this cap per consecutive miss).
     spec_backoff_rounds: int = 8
+
+
+def resolve_kv_dtype(name: Optional[str], default: torch.dtype) -> torch.dtype:
+    """The KV pool dtype for a config spelling: "auto" (or empty, or None)
+    follows ``default``, the activation dtype; "bf16" pins a bfloat16 pool;
+    "int8" an int8 pool with per-(token, kv head) scales. Unknown names
+    raise instead of silently serving the activation width."""
+    if name in (None, "", "auto"):
+        return default
+    if name == "fp8":
+        raise NotImplementedError("fp8 KV pools are not ported yet "
+                                  "(ROADMAP.md queue 1, item 3)")
+    resolved = {"bf16": torch.bfloat16, "int8": torch.int8}.get(name)
+    if resolved is None:
+        raise ValueError(f"kv_dtype {name!r} not one of auto/bf16/fp8/int8")
+    return resolved
 
 
 def _unsupported(req: EngineRequest) -> Optional[str]:

@@ -2,8 +2,11 @@
 
 The pool is a pair of tensors ``[n_layers, num_pages * page_size,
 n_kv_heads, head_dim]`` on the serving device; the forward writes into them
-in place. Logical->physical mapping lives in per-slot page tables (int32),
-and the free list is host-side.
+in place. An int8 pool holds, for K and for V, a ``(values int8, scales
+float32 [n_layers, num_pages * page_size, n_kv_heads])`` tuple with one
+absmax scale per (token, kv head) (``ops/attention.py::quantize_kv``).
+Logical->physical mapping lives in per-slot page tables (int32), and the
+free list is host-side.
 
 Prefix caching: full pages are content-addressed by a hash chain over their
 token ids. When a new request's prompt shares a page-aligned prefix with
@@ -21,7 +24,7 @@ from __future__ import annotations
 
 from collections import OrderedDict
 from dataclasses import dataclass, field
-from typing import Optional, Sequence
+from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
@@ -31,8 +34,8 @@ import torch
 class PagePool:
     """Device tensors for the paged KV cache."""
 
-    kv_k: torch.Tensor
-    kv_v: torch.Tensor
+    kv_k: Any  # a tensor, or an int8 pool's (values, scales)
+    kv_v: Any
     page_size: int
     num_pages: int
 
@@ -47,12 +50,15 @@ class PagePool:
         device="cuda",
     ) -> "PagePool":
         shape = (n_layers, num_pages * page_size, n_kv_heads, head_dim)
-        return PagePool(
-            kv_k=torch.zeros(shape, dtype=dtype, device=device),
-            kv_v=torch.zeros(shape, dtype=dtype, device=device),
-            page_size=page_size,
-            num_pages=num_pages,
-        )
+
+        def alloc():
+            vals = torch.zeros(shape, dtype=dtype, device=device)
+            if dtype == torch.int8:
+                return vals, torch.zeros(shape[:3], dtype=torch.float32, device=device)
+            return vals
+
+        return PagePool(kv_k=alloc(), kv_v=alloc(), page_size=page_size,
+                        num_pages=num_pages)
 
 
 def hash_blocks(token_ids: Sequence[int], page_size: int,

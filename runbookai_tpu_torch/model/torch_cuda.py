@@ -9,13 +9,17 @@ inherited ``complete`` serves plain (unguided) completions through ``chat``.
 from __future__ import annotations
 
 import codecs
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
 from runbookai_tpu_torch.agent.types import LLMResponse
 from runbookai_tpu_torch.engine.async_engine import AsyncEngine
-from runbookai_tpu_torch.engine.engine import EngineConfig, EngineCore
+from runbookai_tpu_torch.engine.engine import (
+    EngineConfig,
+    EngineCore,
+    resolve_kv_dtype,
+)
 from runbookai_tpu_torch.engine.request import SamplingParams
 from runbookai_tpu_torch.model.chat_template import (
     build_chat_prompt,
@@ -23,7 +27,11 @@ from runbookai_tpu_torch.model.chat_template import (
     parse_assistant_output,
 )
 from runbookai_tpu_torch.model.client import BaseLLMClient
-from runbookai_tpu_torch.models.llama import get_config, init_params
+from runbookai_tpu_torch.models.llama import (
+    get_config,
+    init_params,
+    init_params_quantized,
+)
 from runbookai_tpu_torch.utils.tokens import ByteTokenizer
 
 
@@ -77,22 +85,32 @@ class TorchCudaClient(BaseLLMClient):
 
     @classmethod
     def build(cls, model: str = "llama3-8b-instruct", device="cuda",
-              dtype: torch.dtype = torch.bfloat16, seed: int = 0,
+              dtype: Union[torch.dtype, str] = torch.bfloat16,
+              kv_cache_dtype: str = "auto", seed: int = 0,
               engine_cfg: Optional[EngineConfig] = None,
               **client_kw) -> "TorchCudaClient":
         """Engine + client for ``model``, initialised at random from ``seed``
-        directly on ``device``, with the byte tokenizer. The default engine
-        is the serving configuration's: 16-token pages, 2048 pages, 8
-        decode slots, 512-token prefill chunks, 8 decode steps per
-        dispatch."""
+        directly on ``device``, with the byte tokenizer. ``dtype="int8"``
+        means int8 layer weights (``init_params_quantized``) with bfloat16
+        activations, embeddings, norms and LM head. ``kv_cache_dtype``
+        ("auto" = the activation dtype, "bf16", "int8") picks the KV pool
+        (``resolve_kv_dtype``). The default engine is the serving
+        configuration's: 16-token pages, 2048 pages, 8 decode slots,
+        512-token prefill chunks, 8 decode steps per dispatch."""
         dev = resolve_device(device)
         cfg = get_config(model)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
-        params = init_params(cfg, dtype=dtype, device=dev, generator=gen)
+        if dtype == "int8":
+            act = torch.bfloat16
+            params = init_params_quantized(cfg, dtype=act, device=dev, generator=gen)
+        else:
+            act = dtype
+            params = init_params(cfg, dtype=act, device=dev, generator=gen)
         ecfg = engine_cfg or EngineConfig(
             page_size=16, num_pages=2048, max_batch_slots=8, prefill_chunk=512,
-            max_seq_len=min(8192, cfg.max_seq_len), kv_dtype=dtype,
+            max_seq_len=min(8192, cfg.max_seq_len),
+            kv_dtype=resolve_kv_dtype(kv_cache_dtype, act),
             decode_steps_per_dispatch=8, prefill_batch=4)
         core = EngineCore(cfg, params, ByteTokenizer(), ecfg, seed=seed)
         return cls(core, core.tokenizer,

@@ -3,7 +3,8 @@
 Both packages keep the same stacked pytree (``embed``, ``layers`` with
 ``[L, in, out]`` matrices, ``final_norm``, optional ``lm_head``), so
 conversion is one tensor per leaf; it lets the tests feed both packages the
-same weights.
+same weights. An int8 ``{"q": int8, "s": float32}`` layer leaf converts to a
+dict of the same two tensors, in their own types.
 """
 
 from __future__ import annotations
@@ -20,17 +21,22 @@ def params_from_jax(np_params: dict, device="cuda",
                     dtype: Optional[torch.dtype] = None) -> Params:
     """Turn the JAX parameter pytree, as nested dicts of numpy arrays, into
     the port's tensors on ``device`` (cuda unless the caller passes
-    ``device="cpu"``). Norm weights stay float32; other leaves keep their
-    dtype unless ``dtype`` is given."""
+    ``device="cpu"``). Norm weights stay float32; int8 leaves keep their
+    types; other leaves keep their dtype unless ``dtype`` is given."""
 
-    def leaf(name: str, x: Any) -> torch.Tensor:
-        if isinstance(x, dict):
-            raise ValueError(f"{name}: quantized leaves are not ported")
+    def tensor(x: Any) -> torch.Tensor:
         arr = np.asarray(x)
         if arr.dtype.name == "bfloat16":  # ml_dtypes: no torch.from_numpy
-            t = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
-        else:
-            t = torch.from_numpy(np.array(arr, copy=True))
+            return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+        return torch.from_numpy(np.array(arr, copy=True))
+
+    def leaf(name: str, x: Any) -> Any:
+        if isinstance(x, dict):
+            if set(x) != {"q", "s"}:
+                raise ValueError(f"{name}: unsupported parameter subtree {sorted(x)}")
+            return {"q": tensor(x["q"]).to(device, torch.int8),
+                    "s": tensor(x["s"]).to(device, torch.float32)}
+        t = tensor(x)
         if name.endswith("norm"):
             t = t.float()
         elif dtype is not None:
@@ -42,7 +48,7 @@ def params_from_jax(np_params: dict, device="cuda",
         if isinstance(value, dict):
             if name != "layers":
                 raise ValueError(f"unsupported parameter subtree {name!r} "
-                                 f"(LoRA and quantized leaves are not ported)")
+                                 f"(LoRA is not ported)")
             out[name] = {k: leaf(k, v) for k, v in value.items()}
         else:
             out[name] = leaf(name, value)

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from runbookai_tpu_torch.models.llama import LlamaConfig, Params
+from runbookai_tpu_torch.models.quant import LAYER_QUANT_KEYS, quantize_array_np
 
 # Our layer-stacked param leaf -> (HF template, transpose?)
 _LAYER_MAP = {
@@ -124,10 +125,12 @@ def _read_dir(model_dir: Path) -> dict[str, torch.Tensor]:
 
 def load_params(model_dir: str | Path, cfg: Optional[LlamaConfig] = None,
                 dtype: torch.dtype = torch.bfloat16, device="cuda",
-                ) -> tuple[LlamaConfig, Params]:
+                quantize_int8: bool = False) -> tuple[LlamaConfig, Params]:
     """Load stacked params from an HF Llama-family directory onto
     ``device``. Norm weights load as float32, everything else as
-    ``dtype``."""
+    ``dtype``. ``quantize_int8`` quantizes the seven stacked layer matrices
+    on the host (``quantize_array_np``) into ``{"q": int8, "s": float32}``
+    leaves, so their full-precision copies never reach the device."""
     model_dir = Path(model_dir)
     cfg = cfg or config_from_hf(model_dir)
     if cfg.n_experts:
@@ -142,6 +145,11 @@ def load_params(model_dir: str | Path, cfg: Optional[LlamaConfig] = None,
     for leaf, (tmpl, transpose) in _LAYER_MAP.items():
         mats = [raw[tmpl.format(i=i)] for i in range(cfg.n_layers)]
         stacked = torch.stack([m.T if transpose else m for m in mats])
+        if quantize_int8 and leaf in LAYER_QUANT_KEYS:
+            q, s = quantize_array_np(stacked.float().numpy())
+            layers[leaf] = {"q": put(torch.from_numpy(q), torch.int8),
+                            "s": put(torch.from_numpy(s), torch.float32)}
+            continue
         layers[leaf] = put(stacked, torch.float32 if leaf.endswith("norm") else dtype)
     if cfg.qkv_bias:
         for leaf, tmpl in _BIAS_MAP.items():

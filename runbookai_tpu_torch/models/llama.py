@@ -13,6 +13,10 @@ The counterpart of ``runbookai_tpu/models/llama.py`` on one GPU:
   through the decode kernel (T = 1) or the chunk kernel (T > 1).
 - GQA, RMSNorm in float32, the projections and LM head as plain matmuls in
   the activation dtype, logits cast to float32 after the LM-head product.
+- int8 weights (:mod:`runbookai_tpu_torch.models.quant`): the seven layer
+  matrices may be ``{"q", "s"}`` leaves, multiplied by :func:`qmm`. The KV
+  pools may be int8 ``(values, scales)`` tuples
+  (:mod:`runbookai_tpu_torch.ops.attention`).
 """
 
 from __future__ import annotations
@@ -23,11 +27,13 @@ from typing import Any, Optional
 
 import torch
 
+from runbookai_tpu_torch.models.quant import is_quantized
 from runbookai_tpu_torch.ops.attention import write_kv_pages_batch
 from runbookai_tpu_torch.ops.paged_attention import (
     paged_chunk_attention,
     paged_decode_attention,
 )
+from runbookai_tpu_torch.ops.qmm import qmm_eligible, qmm_int8
 from runbookai_tpu_torch.ops.rope import rope_cos_sin, rotate
 
 Params = dict[str, Any]
@@ -239,13 +245,13 @@ def _require_dense(cfg: LlamaConfig) -> None:
             f"{cfg.name}: mixture-of-experts models are not ported yet")
 
 
-def init_params(cfg: LlamaConfig, dtype: torch.dtype = torch.bfloat16,
-                device="cuda", generator: Optional[torch.Generator] = None
-                ) -> Params:
-    """Random-init params (scaled normal, ``1/sqrt(fan_in)``) directly on
-    ``device``: each layer slice is drawn in float32 and cast into the
-    stacked ``dtype`` tensor, so a full-width model never exists in float32
-    or on the host. ``generator`` must live on ``device``."""
+def _build_params(cfg: LlamaConfig, dtype: torch.dtype, device,
+                  generator: Optional[torch.Generator], layer_init=None) -> Params:
+    """Random-init params directly on ``device``. Dense leaves are scaled
+    normal (``1/sqrt(fan_in)``): each layer slice is drawn in float32 and
+    cast into the stacked ``dtype`` tensor, so a full-width model never
+    exists in float32 or on the host. ``layer_init(shape, fan_in)``, when
+    given, makes the seven layer matrices instead."""
     _require_dense(cfg)
     device = torch.device(device)
 
@@ -257,8 +263,8 @@ def init_params(cfg: LlamaConfig, dtype: torch.dtype = torch.bfloat16,
         return out
 
     L, D = cfg.n_layers, cfg.dim
-    layers: dict[str, torch.Tensor] = {
-        name: dense(shape, fan_in)
+    layers: dict[str, Any] = {
+        name: (layer_init or dense)(shape, fan_in)
         for name, (shape, fan_in) in _layer_shapes(cfg).items()}
     layers["attn_norm"] = torch.ones((L, D), dtype=torch.float32, device=device)
     layers["mlp_norm"] = torch.ones((L, D), dtype=torch.float32, device=device)
@@ -277,6 +283,54 @@ def init_params(cfg: LlamaConfig, dtype: torch.dtype = torch.bfloat16,
     return params
 
 
+def init_params(cfg: LlamaConfig, dtype: torch.dtype = torch.bfloat16,
+                device="cuda", generator: Optional[torch.Generator] = None
+                ) -> Params:
+    """Random-init params (scaled normal, ``1/sqrt(fan_in)``) directly on
+    ``device``. ``generator`` must live on ``device``."""
+    return _build_params(cfg, dtype, device, generator)
+
+
+def init_params_quantized(cfg: LlamaConfig, dtype: torch.dtype = torch.bfloat16,
+                          device="cuda", generator: Optional[torch.Generator] = None
+                          ) -> Params:
+    """Random-init params with the seven layer matrices directly in int8,
+    so a full-width model never exists in ``dtype``: ``q`` uniform in
+    [-127, 127] (std 127/sqrt(3)) with the per-channel scale
+    ``sqrt(3) / (127 sqrt(fan_in))``, which gives the dequantized weights the
+    std ``1/sqrt(fan_in)`` of :func:`init_params`. Leaves are ``{"q": int8,
+    "s": float32 [L, 1, out]}``; the rest is as :func:`init_params`."""
+
+    def qdense(shape, fan_in):
+        q = torch.empty(shape, dtype=torch.int8, device=device)
+        for part in q:
+            part.random_(-127, 128, generator=generator)
+        scale = 3 ** 0.5 / (127.0 * fan_in ** 0.5)
+        s = torch.full(shape[:-2] + (1, shape[-1]), scale, dtype=torch.float32,
+                       device=device)
+        return {"q": q, "s": s}
+
+    return _build_params(cfg, dtype, device, generator, qdense)
+
+
+def qmm(x: torch.Tensor, w: Any) -> torch.Tensor:
+    """``x @ w`` for a plain or an int8 ``{"q", "s"}`` weight.
+
+    The route is chosen by shape, as the JAX package's ``qmm(impl="pallas")``
+    chooses it: an eligible ``[M, K] @ [K, N]`` (decode and verify) goes to
+    the int8 kernel :func:`qmm_int8`, any other quantized product (prefill)
+    to ``(x @ q) * s`` in x's dtype through ``torch.matmul``, which widens
+    the whole int8 matrix first."""
+    if not is_quantized(w):
+        return x @ w
+    q, s = w["q"], w["s"]
+    k_dim, n = q.shape
+    lead = x.shape[:-1]
+    if qmm_eligible(math.prod(lead), k_dim, n):
+        return qmm_int8(x.reshape(-1, k_dim), q, s.reshape(1, n)).reshape(*lead, n)
+    return (x @ q.to(x.dtype)) * s.to(x.dtype)
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     """RMSNorm in float32, cast back to ``x``'s dtype."""
     xf = x.float()
@@ -287,7 +341,8 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
 def ffn_block(y: torch.Tensor, lp: dict, cfg: LlamaConfig) -> torch.Tensor:
     """Dense SwiGLU FFN; the residual is added by the caller."""
     _require_dense(cfg)
-    return (torch.nn.functional.silu(y @ lp["w_gate"]) * (y @ lp["w_up"])) @ lp["w_down"]
+    return qmm(torch.nn.functional.silu(qmm(y, lp["w_gate"])) * qmm(y, lp["w_up"]),
+               lp["w_down"])
 
 
 def lm_head_logits(params: Params, cfg: LlamaConfig,
@@ -299,14 +354,24 @@ def lm_head_logits(params: Params, cfg: LlamaConfig,
     return (h @ head).float()
 
 
+def _layer(stacked: Any, i: int) -> Any:
+    """Layer ``i`` of a stacked leaf: a tensor, a ``{"q", "s"}`` dict or an
+    int8 pool's ``(values, scales)`` tuple."""
+    if isinstance(stacked, dict):
+        return {k: v[i] for k, v in stacked.items()}
+    if isinstance(stacked, tuple):
+        return tuple(v[i] for v in stacked)
+    return stacked[i]
+
+
 @torch.no_grad()
 def forward_hidden(
     params: Params,
     cfg: LlamaConfig,
     tokens: torch.Tensor,  # [B, T] int token ids for the current chunk
     positions: torch.Tensor,  # [B, T] int32 absolute positions
-    kv_k: torch.Tensor,  # [n_layers, num_pages * page_size, n_kv, head_dim]
-    kv_v: torch.Tensor,  # same
+    kv_k: Any,  # [n_layers, num_pages * page_size, n_kv, head_dim], or int8
+    kv_v: Any,  # (values, scales [n_layers, num_pages * page_size, n_kv])
     page_tables: torch.Tensor,  # [B, max_pages(+1)] int32
     ctx_lens: torch.Tensor,  # [B] int32 cache length AFTER this chunk
     page_size: int,
@@ -324,23 +389,24 @@ def forward_hidden(
     cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta, cfg.rope_scaling)
     layers = params["layers"]
     for i in range(cfg.n_layers):
-        lp = {name: w[i] for name, w in layers.items()}
+        lp = {name: _layer(w, i) for name, w in layers.items()}
+        k_pool, v_pool = _layer(kv_k, i), _layer(kv_v, i)
         x = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
-        q, k, v = x @ lp["wq"], x @ lp["wk"], x @ lp["wv"]
+        q, k, v = qmm(x, lp["wq"]), qmm(x, lp["wk"]), qmm(x, lp["wv"])
         if cfg.qkv_bias:
             q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
         q = rotate(q.reshape(b, t, n_q, hd), cos, sin)
         k = rotate(k.reshape(b, t, n_kv, hd), cos, sin)
         v = v.reshape(b, t, n_kv, hd)
-        write_kv_pages_batch(kv_k[i], k, positions, page_tables, page_size)
-        write_kv_pages_batch(kv_v[i], v, positions, page_tables, page_size)
+        write_kv_pages_batch(k_pool, k, positions, page_tables, page_size)
+        write_kv_pages_batch(v_pool, v, positions, page_tables, page_size)
         if t == 1:
-            attn = paged_decode_attention(q[:, 0], kv_k[i], kv_v[i],
+            attn = paged_decode_attention(q[:, 0], k_pool, v_pool,
                                           page_tables, ctx_lens, page_size)
         else:
-            attn = paged_chunk_attention(q, kv_k[i], kv_v[i], page_tables,
+            attn = paged_chunk_attention(q, k_pool, v_pool, page_tables,
                                          ctx_lens, positions, page_size)
-        h = h + attn.reshape(b, t, n_q * hd) @ lp["wo"]
+        h = h + qmm(attn.reshape(b, t, n_q * hd), lp["wo"])
         y = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
         h = h + ffn_block(y, lp, cfg)
     return h
@@ -352,8 +418,8 @@ def forward_impl(
     cfg: LlamaConfig,
     tokens: torch.Tensor,
     positions: torch.Tensor,
-    kv_k: torch.Tensor,
-    kv_v: torch.Tensor,
+    kv_k: Any,
+    kv_v: Any,
     page_tables: torch.Tensor,
     ctx_lens: torch.Tensor,
     page_size: int,

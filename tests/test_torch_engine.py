@@ -193,4 +193,7 @@ def test_cli_chat_on_cpu():
     stats = json.loads(proc.stdout.strip().splitlines()[-1])
     assert stats["device"] == "cpu" and stats["completion_tokens"] == 4
     assert stats["kernel_launches"] == {"paged_decode_attention": 0,
-                                        "paged_chunk_attention": 0}
+                                        "paged_chunk_attention": 0,
+                                        "paged_decode_attention_int8": 0,
+                                        "paged_chunk_attention_int8": 0,
+                                        "qmm_int8": 0}

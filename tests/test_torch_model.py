@@ -141,9 +141,28 @@ def test_loader_forward_matches_hf_goldens(name):
     np.testing.assert_allclose(logits.numpy(), want, atol=2e-4, rtol=2e-3)
 
 
-def test_loader_refuses_moe_and_converter_refuses_quantized():
+def test_loader_refuses_moe():
     d = FIXTURES / "hf-tiny-mixtral"
     with pytest.raises(NotImplementedError):
         load_params(d, config_from_hf(d), dtype=torch.float32, device="cpu")
+
+
+def test_converter_carries_quantized_leaves():
+    """An int8 ``{"q", "s"}`` leaf converts to the same two arrays in their
+    own types, whatever ``dtype`` the other leaves are cast to; a subtree of
+    other keys is refused."""
+    rng = np.random.default_rng(5)
+    q = rng.integers(-127, 128, size=(2, 8, 16)).astype(np.int8)
+    s = rng.uniform(size=(2, 1, 16)).astype(np.float32)
+    out = params_from_jax({"embed": np.ones((4, 8), np.float32),
+                           "layers": {"wq": {"q": q, "s": s},
+                                      "attn_norm": np.ones((2, 8), np.float32)}},
+                          device="cpu", dtype=torch.bfloat16)
+    wq = out["layers"]["wq"]
+    assert (wq["q"].dtype, wq["s"].dtype) == (torch.int8, torch.float32)
+    np.testing.assert_array_equal(wq["q"].numpy(), q)
+    np.testing.assert_array_equal(wq["s"].numpy(), s)
+    assert out["embed"].dtype == torch.bfloat16
+    assert out["layers"]["attn_norm"].dtype == torch.float32
     with pytest.raises(ValueError):
-        params_from_jax({"layers": {"wq": {"q": np.zeros((1, 2, 2), np.int8)}}})
+        params_from_jax({"layers": {"wq": {"A": q, "B": q}}}, device="cpu")
