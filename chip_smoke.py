@@ -33,7 +33,24 @@ Phases (any failure exits non-zero; one JSON object per phase on stdout):
    the engine loop crashed or a request was aborted;
 9. phases 7 and 8 again with int8 weights and an int8 KV pool
    (``TorchCudaClient.build(dtype="int8", kv_cache_dtype="int8")``): the
-   int8 kernels' counts must rise and the bf16 attention counts stay 0.
+   int8 kernels' counts must rise and the bf16 attention counts stay 0;
+10. the page-split partial kernels (K4 for decode, the chunk partial for
+   T > 1) on phase 2's and phase 3's inputs cut into two page shards of
+   1024 pages, at the shape of one call of phase 12's path (one model
+   group's 4 query heads over its kv head) and over all heads: each
+   shard's (acc, m, l) against its plain version, the merge of both shards
+   against K1/K2 on the unsplit pool, the rejection of a result with the
+   last page dropped, and per-call times beside the memory-efficient SDPA
+   call that returns the same partial normalised (out, log-sum-exp);
+11. the tensor-parallel forward of llama3-8b-instruct at full width, depth
+   cut to 2 layers, f32 weights and pool, on a model=8 x seq=2 and a
+   model=8 x seq=1 mesh of 16 and 8 shards on the one card, against the
+   unsharded forward: a prefill chunk, a decode step and a T=8 verify;
+12. the requests of phase 7 served at full depth through
+   ``TorchCudaClient.build(tp=16, devices=["cuda:0"] * 16)`` (model=8 x
+   seq=2) over a 256-page pool: pages of both page shards must be
+   allocated, the partial kernels' counts must rise and K1's and K2's
+   stay 0; then once more under torch.profiler, as phase 8.
 
 Then it prints the kernels' line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -73,10 +90,32 @@ QMM_SHAPES = {"wq": (4096, 4096), "wk": (4096, 1024), "wv": (4096, 1024),
               "w_down": (14336, 4096)}
 QMM_ROWS = (8, 64, 5, 256)
 QMM_LAYERS = 32
+# Page-split checks: the pool of phases 2 and 3 cut into PG page shards.
+PG = 2
+# forward_tp: f32 logits of the sharded forward against the unsharded one on
+# the card. The row-parallel products sum 8 or 16 partial products over a
+# slice of the contraction each, in another order than one cuBLAS call, and
+# the page-split attention merges two flash partials: f32 rounding only.
+FORWARD_TP_TOL = 1e-3
+FORWARD_TP_LAYERS = 2
+TP_PAGES = 256  # engine_kv_split: about 190 pages in use cross 128 per shard
+
+
+_LOG = OUT_DIR / "chip_smoke.jsonl"  # every line of a run, beyond the tool's 24 KB
+_since = [time.perf_counter()]
 
 
 def emit(obj: dict) -> None:
-    print(json.dumps(obj), flush=True)
+    """Print one JSON line and keep it in ``_LOG``; a phase's line gains the
+    seconds since the previous phase line (``phase_s``)."""
+    if "phase" in obj:
+        now = time.perf_counter()
+        obj = {**obj, "phase_s": now - _since[0]}
+        _since[0] = now
+    line = json.dumps(obj)
+    print(line, flush=True)
+    with _LOG.open("a") as f:
+        f.write(line + "\n")
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -144,17 +183,19 @@ def cut_last_page(ctx):
     return ((ctx - 1).clamp_min(0) // PS * PS).to(ctx.dtype)
 
 
-def drop_last_page(pa, q, k, v, tables, ctx, q_start, ref, dtype_name: str) -> dict:
+def drop_last_page(pa, q, k, v, tables, ctx, q_start, ref, dtype_name: str,
+                   gate: bool = True) -> dict:
     """What the tolerance makes of a wrong kernel: the plain version with
     the last page of every sequence dropped, held against the sound result.
-    Fails unless the check rejects it in every sequence that had keys."""
+    With ``gate``, fails unless the check rejects it in every sequence that
+    had keys."""
     short = cut_last_page(ctx)
     wrong = pa.plain_paged_attention(q, k, v, tables, short, q_start, PS)
     over, diff = excess(wrong, ref, dtype_name)
     live = [i for i, c in enumerate(ctx.tolist()) if c > 0]
     per_row = [float(diff[i].max()) for i in live]
     rejected = [bool(over[i].max() > 0) for i in live]
-    if not all(rejected):
+    if gate and not all(rejected):
         raise AssertionError(f"{dtype_name}: the tolerance accepts a result with the "
                              f"last page dropped (rows {live}, rejected {rejected})")
     return {"max_abs_err_by_row": per_row, "rows_rejected": sum(rejected),
@@ -188,11 +229,11 @@ def dequantized(pool, dtype):
 
 
 def token_bytes(pool) -> int:
-    """Bytes of one cached token's K (or V) over every kv head."""
+    """Bytes of one cached token's K (or V) over the pool's kv heads."""
     if isinstance(pool, tuple):
         vals, scales = pool
-        return N_KV * (HD * vals.element_size() + scales.element_size())
-    return N_KV * HD * pool.element_size()
+        return vals.shape[1] * (HD * vals.element_size() + scales.element_size())
+    return pool.shape[1] * HD * pool.element_size()
 
 
 def gather_for_library(q4, k, v, tables, ctx_lens, kv_len):
@@ -362,6 +403,300 @@ def phase_chunk(pa, torch, int8: bool = False) -> dict:
                         "tol": TOL[name], **timed["prefill"], "verify": timed["verify"],
                         "drop_last_page": wrong}
     return result
+
+
+def owned_work(tables, ctx, q_start, t: int, shard: int, pages_local: int):
+    """What page shard ``shard`` must do for these inputs: (keys on its pages
+    below ctx, causal (query, key) pairs over them, page-table entries read)."""
+    import numpy as np
+
+    tab = tables.cpu().numpy()
+    starts = None if q_start is None else q_start.tolist()
+    keys = pairs = entries = 0
+    for i, c in enumerate(ctx.tolist()):
+        n_pages = -(-c // PS)
+        if starts is not None:
+            last = starts[i] + t - 1
+            n_pages = min(n_pages, last // PS + 1) if last >= 0 else 0
+        entries += n_pages
+        owned = np.repeat(tab[i, :n_pages] // pages_local == shard, PS)[:c]
+        keys += int(owned.sum())
+        if starts is None:
+            pairs += int(owned.sum())
+        else:
+            cum = np.concatenate([[0], np.cumsum(owned)])
+            lim = np.clip(np.minimum(len(owned), starts[i] + np.arange(t) + 1), 0, None)
+            pairs += int(cum[lim].sum())
+    return keys, pairs, entries
+
+
+def library_partial(torch, q4, k_local, v_local, tables, ctx, q_start, shard: int,
+                    pages_local: int):
+    """One PyTorch call that computes page shard ``shard``'s flash partial in
+    normalised form: memory-efficient SDPA with its log-sum-exp (out = acc /
+    l, lse = m + log l) over the keys the shard owns, gathered through the
+    tables beforehand and repeated over the GQA group, with ctx and
+    causality in an additive bias. Returns the call (timed here, never made
+    by the port) and a check of its result against the kernel's (acc, m,
+    l): max |err| of out and of lse over the rows that saw a key."""
+    import numpy as np
+
+    b, t, n_q, _ = q4.shape
+    dev = q4.device
+    tab = tables.cpu().numpy().astype(np.int64)
+    rows, kpos = [], []
+    for i, c in enumerate(ctx.tolist()):
+        n_pages = -(-c // PS)
+        pages, pos = tab[i, :n_pages], np.arange(n_pages * PS)
+        keep = np.repeat(pages // pages_local == shard, PS) & (pos < c)
+        local = np.repeat(pages - shard * pages_local, PS) * PS + pos % PS
+        rows.append(local[keep])
+        kpos.append(pos[keep])
+    s = max(16, -(-max(map(len, rows)) // 16) * 16)  # bias rows 16-aligned
+    row_t = np.zeros((b, s), np.int64)
+    pos_t = np.full((b, s), -1, np.int64)  # -1: a pad key
+    for i, (r, p) in enumerate(zip(rows, kpos)):
+        row_t[i, :len(r)], pos_t[i, :len(p)] = r, p
+    row_t, pos_t = torch.from_numpy(row_t).to(dev), torch.from_numpy(pos_t).to(dev)
+    group = n_q // k_local.shape[1]
+    kk = k_local[row_t].permute(0, 2, 1, 3).repeat_interleave(group, dim=1).contiguous()
+    vv = v_local[row_t].permute(0, 2, 1, 3).repeat_interleave(group, dim=1).contiguous()
+    qq = q4.permute(0, 2, 1, 3).contiguous()
+    allowed = (pos_t >= 0)[:, None, :].expand(b, t, s)
+    if q_start is not None:
+        qpos = q_start[:, None].long() + torch.arange(t, device=dev)
+        allowed = allowed & (pos_t[:, None, :] <= qpos[:, :, None])
+    bias = torch.zeros((b, n_q, t, s), dtype=q4.dtype, device=dev)
+    bias.masked_fill_(~allowed[:, None], float("-inf"))
+
+    def call():
+        return torch.ops.aten._scaled_dot_product_efficient_attention(qq, kk, vv, bias, True)
+
+    def check(acc, m, l) -> dict:  # [B, T, n_q, hd], [B, T, n_q], [B, T, n_q]
+        out, lse = call()[:2]
+        seen = l > 0
+        want = acc / l.clamp_min(1e-30)[..., None]
+        err = (out.permute(0, 2, 1, 3).float() - want).abs()[seen]
+        lse_err = (lse[:, :, :t].permute(0, 2, 1).float() - (m + l.log())).abs()[seen]
+        return {"out": float(err.max()), "lse": float(lse_err.max())}
+
+    return call, check
+
+
+def shard_case(pa, torch, q, k, v, tables, ctx, q_pos, name: str,
+               gate_drop: bool = True) -> dict:
+    """The partial kernel on each of PG page shards of (k, v) against its
+    plain version (acc, m and l); the merge of all shards against K1 (decode,
+    ``q_pos`` None) or K2 on the unsplit pool; the dropped-last-page check on
+    the merged result (gated with ``gate_drop``); per call, that is per page
+    shard: kernel, plain and library times and bounds (the owned pages'
+    bytes, or the operations on them), and their means over the shards'
+    calls."""
+    from runbookai_tpu_torch.parallel.kv_split import merge_partials
+
+    decode = q_pos is None
+    pages_local = k.shape[0] // PS // PG
+    ks, vs = k.chunk(PG), v.chunk(PG)  # page shard s: global pages [s, s + 1) * pages_local
+    q_start = None if decode else q_pos[:, 0].contiguous()
+    q4 = q[:, None] if decode else q
+    what = "decode partial" if decode else "chunk partial"
+
+    def kernel(s):
+        if decode:
+            return pa.paged_decode_attention_partial(q, ks[s], vs[s], tables, ctx, s, PS,
+                                                     pages_local)
+        return pa.paged_chunk_attention_partial(q, ks[s], vs[s], tables, ctx, q_pos, s, PS,
+                                                pages_local)
+
+    def plain(s):
+        acc, m, l = pa.plain_paged_attention_partial(q4, ks[s], vs[s], tables, ctx, q_start,
+                                                     PS, s, pages_local)
+        return (acc[:, 0], m[:, 0], l[:, 0]) if decode else (acc, m, l)
+
+    parts, errs = [], []
+    for s in range(PG):
+        got, want = kernel(s), plain(s)
+        torch.cuda.synchronize()
+        errs.append(max(compare(g, w, name, f"{what} {name} shard {s} {field}")
+                        for g, w, field in zip(got, want, ("acc", "m", "l"))))
+        parts.append(got)
+    merged = merge_partials(parts, q.device).to(q.dtype)
+    if decode:
+        whole = pa.paged_decode_attention(q, k, v, tables, ctx, PS)
+    else:
+        whole = pa.paged_chunk_attention(q, k, v, tables, ctx, q_pos, PS)
+    torch.cuda.synchronize()
+    merge_err = compare(merged, whole, name, f"{what} {name}: merge vs the unsplit kernel")
+    wrong = drop_last_page(pa, q4, k, v, tables, ctx, q_start,
+                           merged[:, None] if decode else merged, name, gate=gate_drop)
+    shards = []
+    for s in range(PG):
+        keys, pairs, entries = owned_work(tables, ctx, q_start, q4.shape[1], s, pages_local)
+        rows = q.numel() // HD
+        n_bytes = (q.numel() * q.element_size() + keys * 2 * token_bytes(k)
+                   + q.numel() * 4 + 2 * rows * 4 + entries * 4
+                   + q.shape[0] * 4 * (1 if decode else 2))
+        bound_ms, bound_by = bound(n_bytes, 4.0 * pairs * q.shape[-2] * HD, name)
+        lib_call, lib_check = library_partial(torch, q4, ks[s], vs[s], tables, ctx,
+                                              q_start, s, pages_local)
+        acc, m, l = parts[s]
+        shards.append({"ms": time_ms(lambda: kernel(s)),
+                       "plain_ms": time_ms(lambda: plain(s), iters=3, warmup=1),
+                       "library_ms": time_ms(lib_call, iters=5, warmup=1),
+                       "library_max_abs_err": lib_check(
+                           *((acc[:, None], m[:, None], l[:, None]) if decode
+                             else (acc, m, l))),
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "keys": keys, "max_abs_err": errs[s]})
+        del lib_call, lib_check
+    mean = {f: sum(x[f] for x in shards) / PG
+            for f in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    return {"max_abs_err": max(errs), "merge_max_abs_err": merge_err, "tol": TOL[name],
+            "q": list(q.shape), "kv_local": list(ks[0].shape),
+            **mean, "bound_by": ("bytes" if all(x["bound_by"] == "bytes" for x in shards)
+                                 else "operations"),
+            "shards": shards, "drop_last_page": wrong}
+
+
+def plan_heads(torch) -> tuple[int, int]:
+    """(query heads, kv heads) of one page-shard call on the tp=16 mesh that
+    ``plan_kv_split`` plans for ENGINE_MODEL: each model group's query heads
+    (gathered over its page shards) over its kv heads."""
+    from runbookai_tpu_torch.models.llama import get_config
+    from runbookai_tpu_torch.parallel.kv_split import plan_kv_split
+
+    cfg = get_config(ENGINE_MODEL)
+    plan = plan_kv_split(cfg, 16)
+    if plan.pg_shards != PG or (cfg.n_heads, cfg.n_kv_heads) != (N_Q, N_KV):
+        raise AssertionError(f"plan {plan} does not cut the {N_Q}/{N_KV}-head pools "
+                             f"into PG={PG} page shards")
+    return N_Q // plan.kv_shards, N_KV // plan.kv_shards
+
+
+def partial_cases(pa, torch, q, k, v, tables, ctx, q_pos, name: str) -> dict:
+    """``shard_case`` at the shape one call of the served tp=16 path has
+    (``served``: one model group's query and kv heads) and over every head
+    (``all_heads``). The dropped-last-page check is gated over every head,
+    and at the served shape in f32 only: in bf16 a one-token last page of
+    a 4097-token row moves 4 heads by less than the tolerance (it is
+    recorded)."""
+    nq, nkv = plan_heads(torch)
+    served = shard_case(pa, torch, q[..., :nq, :].contiguous(), k[:, :nkv].contiguous(),
+                        v[:, :nkv].contiguous(), tables, ctx, q_pos, name,
+                        gate_drop=name == "float32")
+    every = shard_case(pa, torch, q, k, v, tables, ctx, q_pos, name)
+    return {"served": served, "all_heads": every,
+            "max_abs_err": max(served["max_abs_err"], every["max_abs_err"])}
+
+
+def phase_decode_partial(pa, torch) -> dict:
+    """K4 on phase 2's decode inputs, whose live pages are drawn over the
+    whole pool, cut into PG page shards of NUM_PAGES / PG pages: at the
+    served shape (B=8, 4 query heads over 1 kv head) and over all heads."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    ctx = torch.tensor(DECODE_CTX, dtype=torch.int32, device=dev)
+    result: dict = {"phase": "decode_partial_kernel", "page_shards": PG,
+                    "ctx_lens": DECODE_CTX}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        k, v, tables = make_pool(gen, dtype, DECODE_CTX, dev)
+        q = torch.randn((B, N_Q, HD), generator=gen, device=dev).to(dtype)
+        result[name] = partial_cases(pa, torch, q, k, v, tables, ctx, None, name)
+        del k, v
+    return result
+
+
+def phase_chunk_partial(pa, torch) -> dict:
+    """The chunk partial on phase 3's 4 x 512 prefill and T=8 verify inputs,
+    cut into PG page shards, at the served shape and over all heads."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    result: dict = {"phase": "chunk_partial_kernel", "page_shards": PG}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        cases = {}
+        for kind in ("prefill", "verify"):
+            q, k, v, tables, ctx, pos, _ = chunk_inputs(torch, dev, gen, dtype, kind)
+            cases[kind] = partial_cases(pa, torch, q, k, v, tables, ctx, pos, name)
+            del q, k, v
+        result[name] = {**cases["prefill"], "verify": cases["verify"],
+                        "max_abs_err": max(c["max_abs_err"] for c in cases.values())}
+    return result
+
+
+def phase_forward_tp(torch) -> dict:
+    """The 8B at full width, depth cut to FORWARD_TP_LAYERS layers, f32
+    weights and pool: the forward on the model=8 x seq=2 (tp=16) and
+    model=8 x seq=1 (tp=8) meshes, every shard on the one card, against the
+    unsharded forward, over a prefill chunk, a decode step and a T=8 verify
+    whose pages lie on both page shards."""
+    import dataclasses
+
+    from runbookai_tpu_torch.engine.kv_cache import PagePool
+    from runbookai_tpu_torch.models.llama import forward_impl, get_config, init_params
+    from runbookai_tpu_torch.parallel.kv_split import plan_kv_split
+    from runbookai_tpu_torch.parallel.mesh import build_mesh
+    from runbookai_tpu_torch.parallel.sharding import shard_params
+
+    free_device(torch)
+    cfg = dataclasses.replace(get_config(ENGINE_MODEL), n_layers=FORWARD_TP_LAYERS)
+    dev = torch.device(f"{DEVICE}:0")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    params = init_params(cfg, dtype=torch.float32, device=dev, generator=gen)
+    num_pages, max_pages, prompt = 64, 16, 100
+    tables = torch.zeros((2, max_pages + 1), dtype=torch.int32, device=dev)
+    tables[0, :7] = torch.tensor([33, 2, 40, 5, 60, 7, 50])  # pages on both shards
+    tables[1, :7] = torch.tensor([3, 34, 12, 45, 14, 63, 16])
+
+    def step(start, t):
+        tok = torch.randint(0, cfg.vocab_size, (2, t), generator=gen, device=dev)
+        pos = (start + torch.arange(t, device=dev, dtype=torch.int32)).expand(2, t)
+        ctx = torch.full((2,), start + t, dtype=torch.int32, device=dev)
+        return tok, pos.contiguous(), ctx
+
+    steps = [step(0, prompt), step(prompt, 1), step(prompt + 1, 8)]
+    pool_args = (cfg.n_layers, num_pages, PS, cfg.n_kv_heads, cfg.head_dim, torch.float32)
+    ref_pool = PagePool.create(*pool_args, device=dev)
+    want = [forward_impl(params, cfg, tok, pos, ref_pool.kv_k, ref_pool.kv_v, tables, ctx,
+                         PS) for tok, pos, ctx in steps]
+    out: dict = {"phase": "forward_tp", "model": ENGINE_MODEL,
+                 "reduced": {"n_layers": [get_config(ENGINE_MODEL).n_layers,
+                                          FORWARD_TP_LAYERS]},
+                 "dtype": "float32", "tol": [FORWARD_TP_TOL, FORWARD_TP_TOL],
+                 "steps": ["prefill T=100", "decode", "verify T=8"]}
+    for tp, must, never in ((16, PARTIALS, ("paged_decode_attention",
+                                            "paged_chunk_attention")),
+                            (8, ("paged_decode_attention", "paged_chunk_attention"),
+                             PARTIALS)):
+        plan = plan_kv_split(cfg, tp)
+        mesh = build_mesh(plan.kv_shards, plan.pg_shards, [dev] * tp)
+        shards = shard_params({**params, "layers": dict(params["layers"])}, cfg, mesh)
+        pool = PagePool.create(*pool_args, device=dev, mesh=mesh)
+        reset_counts()
+        t0 = time.perf_counter()
+        got = [forward_impl(shards, cfg, tok, pos, pool.kv_k, pool.kv_v, tables, ctx, PS,
+                            mesh=mesh) for tok, pos, ctx in steps]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = counts()
+        if any(launched[k] == 0 for k in must) or any(launched[k] for k in never):
+            raise AssertionError(f"forward_tp tp={tp}: kernel routing {launched}")
+        errs = []
+        for g, w, what in zip(got, want, out["steps"]):
+            diff = (g - w).abs()
+            if not bool(g.isfinite().all()):
+                raise AssertionError(f"forward_tp tp={tp} {what}: non-finite logits")
+            if bool((diff > FORWARD_TP_TOL + FORWARD_TP_TOL * w.abs()).any()):
+                raise AssertionError(f"forward_tp tp={tp} {what}: max |err| "
+                                     f"{float(diff.max()):.3e} beyond atol/rtol "
+                                     f"{FORWARD_TP_TOL}")
+            errs.append(float(diff.max()))
+        out[f"model{plan.kv_shards}_seq{plan.pg_shards}"] = {
+            "max_abs_err": errs, "wall_s": wall,
+            "launches": {k: v for k, v in launched.items() if v}}
+        del shards, pool, got
+    return out
 
 
 def qmm_case(qm, torch, x, q, s, deq, name: str) -> dict:
@@ -573,22 +908,33 @@ async def serve(client, texts):
 
 # The kernels each serving configuration (weights; KV pool of the same
 # type) must launch, and those it must not.
+PARTIALS = ("paged_decode_attention_partial", "paged_chunk_attention_partial")
 SERVING = {
     "bfloat16": dict(must=("paged_decode_attention", "paged_chunk_attention"),
-                     never=()),
+                     never=PARTIALS),
     "int8": dict(must=("paged_decode_attention_int8", "paged_chunk_attention_int8",
                        "qmm_int8"),
-                 never=("paged_decode_attention", "paged_chunk_attention")),
+                 never=("paged_decode_attention", "paged_chunk_attention", *PARTIALS)),
+    "kv_split": dict(must=PARTIALS,
+                     never=("paged_decode_attention", "paged_chunk_attention")),
 }
 
 
 def build_client(torch, weights: str):
-    """bf16 weights and pool, or int8 weights (bf16 activations) and pool,
-    through the entry point a user calls."""
-    from runbookai_tpu_torch.model.torch_cuda import TorchCudaClient
+    """bf16 weights and pool, int8 weights (bf16 activations) and pool, or
+    bf16 on the tp=16 page-split mesh (model=8 x seq=2, every shard on the
+    one card, a TP_PAGES-page pool), through the entry point a user calls."""
+    import dataclasses
+
+    from runbookai_tpu_torch.model.torch_cuda import TorchCudaClient, serving_engine_config
+    from runbookai_tpu_torch.models.llama import get_config
 
     if weights == "int8":
         kw = dict(dtype="int8", kv_cache_dtype="int8")
+    elif weights == "kv_split":
+        ecfg = serving_engine_config(get_config(ENGINE_MODEL), torch.bfloat16)
+        kw = dict(dtype=torch.bfloat16, tp=16, devices=[f"{DEVICE}:0"] * 16,
+                  engine_cfg=dataclasses.replace(ecfg, num_pages=TP_PAGES))
     else:
         kw = dict(dtype=torch.bfloat16)
     return TorchCudaClient.build(ENGINE_MODEL, device=DEVICE, seed=0, max_new_tokens=32,
@@ -618,6 +964,9 @@ def free_device(torch) -> None:
     torch.cuda.empty_cache()
 
 
+ENGINE_PHASES = {"bfloat16": "engine", "int8": "engine_int8", "kv_split": "engine_kv_split"}
+
+
 def phase_engine(torch, weights: str = "bfloat16") -> dict:
     free_device(torch)
     torch.cuda.reset_peak_memory_stats()
@@ -627,9 +976,19 @@ def phase_engine(torch, weights: str = "bfloat16") -> dict:
     build_s = time.perf_counter() - t0
     core = client.core
     texts = prompts()
-    prompt_tokens = [len(client._prompt_ids("", u, None)) for u in texts]
+    prompt_ids = [client._prompt_ids("", u, None) for u in texts]
+    prompt_tokens = [len(p) for p in prompt_ids]
     if min(prompt_tokens) < 64 or max(prompt_tokens) > 1024:
         raise AssertionError(f"prompt lengths {prompt_tokens} outside 64..1024")
+    pages: set[int] = set()
+    alloc = core.kv.allocator.alloc
+
+    def recording_alloc(n):
+        got = alloc(n)
+        pages.update(got)
+        return got
+
+    core.kv.allocator.alloc = recording_alloc
 
     reset_counts()
     resps, wall = asyncio.run(_serve_and_stop(client, texts))
@@ -642,16 +1001,43 @@ def phase_engine(torch, weights: str = "bfloat16") -> dict:
         raise AssertionError(f"main path ({weights}) skipped a kernel or ran one of "
                              f"the other configuration: {launched}")
     ttft = [r.usage["ttft_ms"] for r in resps]
-    return {"phase": "engine" if weights == "bfloat16" else "engine_int8",
-            "model": ENGINE_MODEL, "dtype": weights,
-            "kv_dtype": str(core.ecfg.kv_dtype).split(".")[1],
-            "requests": len(texts), "prompt_tokens": prompt_tokens,
-            "completion_tokens": done,
-            "finish_reasons": [r.finish_reason.value for r in finished],
-            "wall_s": wall, "tokens_per_s": sum(done) / wall,
-            "ttft_ms": ttft, "build_s": build_s, "launches": launched,
-            "engine_metrics": core.metrics,
-            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    result = {"phase": ENGINE_PHASES[weights],
+              "model": ENGINE_MODEL, "dtype": "bfloat16" if weights == "kv_split" else weights,
+              "kv_dtype": str(core.ecfg.kv_dtype).split(".")[1],
+              "requests": len(texts), "prompt_tokens": prompt_tokens,
+              "completion_tokens": done,
+              "finish_reasons": [r.finish_reason.value for r in finished],
+              "wall_s": wall, "tokens_per_s": sum(done) / wall,
+              "ttft_ms": ttft, "build_s": build_s, "launches": launched,
+              "engine_metrics": core.metrics,
+              "max_memory_allocated": torch.cuda.max_memory_allocated(),
+              "greedy_tokens": [streams_by_prompt(finished, p) for p in prompt_ids]}
+    if core.mesh is not None:
+        local = core.ecfg.num_pages // core.mesh.seq
+        by_shard = [sum(1 for p in pages if p // local == s) for s in range(core.mesh.seq)]
+        if not all(by_shard):
+            raise AssertionError(f"pages allocated per page shard {by_shard}: the run "
+                                 f"left a page shard unused")
+        result.update(mesh=core.mesh.shape, num_pages=core.ecfg.num_pages,
+                      pages_allocated_by_shard=by_shard,
+                      # one attention call per shard and layer
+                      calls_per_forward=core.cfg.n_layers * core.mesh.tp)
+    return result
+
+
+def streams_by_prompt(finished, prompt: list[int]) -> list[int]:
+    """The tokens generated for the request whose prompt starts with
+    ``prompt`` (preemption folds output into the prompt)."""
+    for req in finished:
+        if req.prompt_ids[:len(prompt)] == prompt:
+            return list(req.all_out_ids)
+    raise AssertionError("no finished request for a prompt")
+
+
+def same_token_share(a: list[list[int]], b: list[list[int]]) -> float:
+    """Share of greedy positions where two runs emitted the same token."""
+    pairs = [(x, y) for s, t in zip(a, b) for x, y in zip(s, t)]
+    return sum(x == y for x, y in pairs) / max(1, len(pairs))
 
 
 def check_served(client, resps, n_requests: int):
@@ -677,9 +1063,11 @@ def check_served(client, resps, n_requests: int):
 
 
 def kernel_class(name: str) -> str:
-    if "paged_attention_kernel" in name:  # template flag kCausal; int8_t pools
-        cls = "chunk_attention" if "true>" in name else "decode_attention"
-        return cls + ("_int8" if "signed char" in name or "int8" in name else "")
+    if "paged_attention_kernel<" in name:  # <TQ, TKV, kCausal, kPartial>
+        args = name.split("paged_attention_kernel<", 1)[1].split(">", 1)[0].split(", ")
+        cls = "chunk_attention" if args[2] == "true" else "decode_attention"
+        cls += "_partial" if args[3] == "true" else ""
+        return cls + ("_int8" if args[1] in ("signed char", "int8_t") else "")
     if "qmm" in name:  # before the matmul test: the int8 weight kernel
         return "qmm"
     if any(s in name.lower() for s in ("gemm", "nvjet", "cutlass", "xmma")):
@@ -713,7 +1101,7 @@ def phase_profile(torch, weights: str = "bfloat16") -> dict:
         by_name[name] = by_name.get(name, 0.0) + ms
     busy = sum(v[0] for v in classes.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    return {"phase": "engine_profile" if weights == "bfloat16" else "engine_int8_profile",
+    return {"phase": ENGINE_PHASES[weights] + "_profile",
             "wall_ms": wall * 1e3,
             "device_busy_ms": busy,
             "idle_share": (1.0 - busy / (wall * 1e3)) if busy else None,
@@ -747,6 +1135,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    OUT_DIR.mkdir(exist_ok=True)
+    _LOG.write_text("")
     emit({"phase": "env", "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0)})
     emit(phase_build())
@@ -768,6 +1158,18 @@ def main() -> int:
     eng8 = phase_engine(torch, weights="int8")
     emit(eng8)
     emit(phase_profile(torch, weights="int8"))
+    decp = phase_decode_partial(pa, torch)
+    emit(decp)
+    chkp = phase_chunk_partial(pa, torch)
+    emit(chkp)
+    emit(phase_forward_tp(torch))
+    split = phase_engine(torch, weights="kv_split")
+    # Not gated: the sharded forward sums bf16 partial products in another
+    # order, so greedy choices between near-equal logits can flip.
+    split["same_greedy_tokens_as_engine"] = same_token_share(
+        split["greedy_tokens"], eng["greedy_tokens"])
+    emit(split)
+    emit(phase_profile(torch, weights="kv_split"))
 
     src = "runbookai_tpu_torch/csrc/paged_attention.cu"
     pallas = "runbookai_tpu/ops/paged_attention_pallas.py"
@@ -791,6 +1193,29 @@ def main() -> int:
                "library_ms": main_path["library_ms"]}
         if "verify" in main_path:  # the chunk kernel: the prefill above, T=8 here
             row["verify"] = main_path["verify"]
+        kernels.append(row)
+    # The page-split partial kernels per call as the tp=16 path makes them
+    # (one model group's heads over one page shard), the mean over both page
+    # shards' calls; launches from engine_kv_split, one call per shard and
+    # layer in every forward. library_ms: memory-efficient SDPA with its
+    # log-sum-exp over the shard's keys gathered beforehand.
+    fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    for name, res, replaces in (
+            ("paged_decode_attention_partial", decp, f"{pallas}:567"),
+            # The JAX package runs T > 1 page-split attention on XLA.
+            ("paged_chunk_attention_partial", chkp,
+             "runbookai_tpu/parallel/kv_split.py:104")):
+        main_path = res["bfloat16"]["served"]
+        row = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+               "launches": split["launches"][name],
+               "calls_per_forward": split["calls_per_forward"],
+               "max_abs_err": max(res["bfloat16"]["max_abs_err"],
+                                  res["float32"]["max_abs_err"]),
+               **{f: main_path[f] for f in fields}, "q": main_path["q"],
+               "kv_local": main_path["kv_local"]}
+        if "verify" in res["bfloat16"]:
+            verify = res["bfloat16"]["verify"]["served"]
+            row["verify"] = {**{f: verify[f] for f in fields}, "q": verify["q"]}
         kernels.append(row)
     # K5 per decode layer: the sum over its seven products at M=8 (and, under
     # "verify", at M=64), each timed on rotating layer slices.

@@ -3,7 +3,9 @@
 Builds the client (random weights from ``--seed``, byte tokenizer), serves
 the prompt through the engine, prints the reply, then one JSON line of
 stats. ``--dtype int8`` serves int8 layer weights with bfloat16 activations;
-``--kv-cache-dtype int8`` an int8 KV pool.
+``--kv-cache-dtype int8`` an int8 KV pool. ``--tp N`` serves on a
+tensor-parallel mesh of N shards (KV page-split past the kv-head count);
+with ``--device cpu`` every shard runs on the CPU.
 """
 
 from __future__ import annotations
@@ -34,6 +36,9 @@ def _parser() -> argparse.ArgumentParser:
                            "layer weights with bfloat16 activations")
     chat.add_argument("--kv-cache-dtype", choices=("auto", "bf16", "int8"),
                       default="auto", help="KV pool (auto: the activation dtype)")
+    chat.add_argument("--tp", type=int, default=1,
+                      help="tensor-parallel shards, one CUDA card each (on "
+                           "--device cpu, all on the CPU)")
     return p
 
 
@@ -43,7 +48,7 @@ async def _chat(args) -> dict:
         dtype = torch.float32 if args.device == "cpu" else torch.bfloat16
     client = TorchCudaClient.build(args.model, device=args.device, dtype=dtype,
                                    kv_cache_dtype=args.kv_cache_dtype,
-                                   seed=args.seed,
+                                   seed=args.seed, tp=args.tp,
                                    max_new_tokens=args.max_new_tokens)
     t0 = time.perf_counter()
     try:
@@ -53,7 +58,9 @@ async def _chat(args) -> dict:
     elapsed = time.perf_counter() - t0
     print(resp.content)
     n = resp.usage["completion_tokens"]
+    mesh = client.core.mesh
     return {"model": args.model, "device": str(client.core.device),
+            "mesh": mesh.shape if mesh is not None else None,
             "prompt_tokens": resp.usage["prompt_tokens"],
             "completion_tokens": n, "ttft_ms": resp.usage["ttft_ms"],
             "elapsed_s": elapsed, "tokens_per_s": n / elapsed if elapsed else 0.0,

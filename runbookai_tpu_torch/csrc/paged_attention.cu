@@ -6,6 +6,10 @@
 //                                 over an int8 pool <- _paged_decode_attention_int8
 //                                 (_decode_kernel_int8)
 //   rb_paged_chunk_attention   <- paged_chunk_attention  (_chunk_kernel),  T > 1
+//   rb_paged_decode_attention_partial <- paged_decode_attention_partial
+//                                 (_decode_kernel_partial): KV page-split serving
+//   rb_paged_chunk_attention_partial  <- the XLA _partial_flash of
+//                                 runbookai_tpu/parallel/kv_split.py (T > 1)
 //
 // The pool holds float32 or bfloat16 K/V, or int8 K/V with one float32 absmax
 // scale per (token, kv head) (runbookai_tpu_torch/ops/attention.py quantize_kv).
@@ -38,6 +42,18 @@
 // token, plus n_kv * 2 * 4 bytes of scales for an int8 pool) over 3.35 TB/s. This first version computes on CUDA cores in f32
 // from shared memory, with no tensor cores, TMA or split-K over pages; those
 // come later.
+//
+// The partial kernels (template flag kPartial) run the same page walk over
+// one page shard's slice of the pool: page tables hold GLOBAL page ids, page
+// g lives on shard g / pages_local at local page g - shard * pages_local, and
+// a page of another shard is skipped before it is loaded (the test is
+// uniform over the block, so the barriers stay aligned). They write the
+// un-normalised flash partials in float32 -- acc [B, T, n_q, hd], m and l
+// [B, T, n_q] -- for the merge across page shards (parallel/kv_split.py
+// merge_partials); a row that sees no key on this shard gives (0, -1e30, 0).
+// Their bound is the owned pages' K/V bytes over 3.35 TB/s; on a page-split
+// mesh each shard reads only its own pages, and the GQA group's query heads
+// share every page loaded, as in the full kernels.
 //
 // Built with every source of csrc/ by runbookai_tpu_torch/ops/build.py (nvcc -gencode
 // arch=compute_90a,code=sm_90a -std=c++17 -O3, one shared library, ctypes).
@@ -75,9 +91,12 @@ struct Args {
   const int* tables;    // [B, P]
   const int* ctx_lens;  // [B]
   const int* q_start;   // [B] position of each row's query 0 (chunk only)
-  void* out;            // [B, T, n_q, hd], q's dtype
+  void* out;            // [B, T, n_q, hd], q's dtype; float acc when partial
   int T, n_q, n_kv, hd, ps, P, tq;
   float scale;
+  float* m_out;         // [B, T, n_q], partial only (else null)
+  float* l_out;         // same
+  int shard, pages_local;  // partial only: this page shard and its page count
 };
 
 // Shared-memory floats one block needs for `rows` query rows.
@@ -90,7 +109,7 @@ __host__ __device__ inline int smem_floats(int rows, int hd, int ps) {
          + 3 * rows;       // m, l, alpha
 }
 
-template <typename TQ, typename TKV, bool kCausal>
+template <typename TQ, typename TKV, bool kCausal, bool kPartial>
 __global__ void paged_attention_kernel(Args a) {
   extern __shared__ float smem[];
   const int b = blockIdx.x, kvh = blockIdx.y;
@@ -139,7 +158,12 @@ __global__ void paged_attention_kernel(Args a) {
   const int* table = a.tables + static_cast<long long>(b) * a.P;
 
   for (int page = 0; page < n_pages; ++page) {
-    const long long row0 = static_cast<long long>(table[page]) * ps;
+    long long page_id = table[page];
+    if constexpr (kPartial) {
+      if (page_id / a.pages_local != a.shard) continue;  // another shard's page
+      page_id -= static_cast<long long>(a.shard) * a.pages_local;
+    }
+    const long long row0 = page_id * ps;
     const int base = page * ps;
     __syncthreads();  // the previous page's K/V and probabilities are consumed
     for (int i = threadIdx.x; i < ps * hd; i += blockDim.x) {
@@ -197,18 +221,31 @@ __global__ void paged_attention_kernel(Args a) {
     }
   }
   __syncthreads();
-  TQ* out = static_cast<TQ*>(a.out);
-  for (int i = threadIdx.x; i < rows * hd; i += blockDim.x) {
-    const int r = i / hd, d = i % hd;
-    out[q_index(r, d)] = from_f32<TQ>(acc_s[i] / fmaxf(l_s[r], 1e-30f));
+  if constexpr (kPartial) {
+    float* acc_out = static_cast<float*>(a.out);
+    for (int i = threadIdx.x; i < rows * hd; i += blockDim.x) {
+      const int r = i / hd, d = i % hd;
+      acc_out[q_index(r, d)] = acc_s[i];
+    }
+    for (int r = threadIdx.x; r < rows; r += blockDim.x) {
+      const long long row = q_index(r, 0) / hd;  // (b, t, h)
+      a.m_out[row] = m_s[r];
+      a.l_out[row] = l_s[r];
+    }
+  } else {
+    TQ* out = static_cast<TQ*>(a.out);
+    for (int i = threadIdx.x; i < rows * hd; i += blockDim.x) {
+      const int r = i / hd, d = i % hd;
+      out[q_index(r, d)] = from_f32<TQ>(acc_s[i] / fmaxf(l_s[r], 1e-30f));
+    }
   }
 }
 
-template <typename TQ, typename TKV, bool kCausal>
+template <typename TQ, typename TKV, bool kCausal, bool kPartial>
 int launch(const Args& a, int B, int threads, cudaStream_t stream) {
   const int n_qblocks = (a.T + a.tq - 1) / a.tq;
   const size_t smem = sizeof(float) * smem_floats(a.tq * (a.n_q / a.n_kv), a.hd, a.ps);
-  auto kernel = paged_attention_kernel<TQ, TKV, kCausal>;
+  auto kernel = paged_attention_kernel<TQ, TKV, kCausal, kPartial>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -218,25 +255,30 @@ int launch(const Args& a, int B, int threads, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kCausal>
+template <bool kCausal, bool kPartial = false>
 int dispatch(const Args& a, int B, int threads, int q_dtype, int kv_dtype, cudaStream_t stream) {
   if (B == 0 || a.T == 0) return 0;
   if (a.n_kv <= 0 || a.n_q % a.n_kv != 0 || a.hd <= 0 || a.ps <= 0 || a.tq <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if ((kv_dtype == kI8) != (a.k_scale != nullptr && a.v_scale != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (kPartial && (a.pages_local <= 0 || a.shard < 0 || a.m_out == nullptr ||
+                   a.l_out == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (q_dtype == kF32 && kv_dtype == kF32)
-    return launch<float, float, kCausal>(a, B, threads, stream);
+    return launch<float, float, kCausal, kPartial>(a, B, threads, stream);
   if (q_dtype == kF32 && kv_dtype == kBF16)
-    return launch<float, __nv_bfloat16, kCausal>(a, B, threads, stream);
+    return launch<float, __nv_bfloat16, kCausal, kPartial>(a, B, threads, stream);
   if (q_dtype == kBF16 && kv_dtype == kF32)
-    return launch<__nv_bfloat16, float, kCausal>(a, B, threads, stream);
+    return launch<__nv_bfloat16, float, kCausal, kPartial>(a, B, threads, stream);
   if (q_dtype == kBF16 && kv_dtype == kBF16)
-    return launch<__nv_bfloat16, __nv_bfloat16, kCausal>(a, B, threads, stream);
-  if (q_dtype == kF32 && kv_dtype == kI8)
-    return launch<float, int8_t, kCausal>(a, B, threads, stream);
-  if (q_dtype == kBF16 && kv_dtype == kI8)
-    return launch<__nv_bfloat16, int8_t, kCausal>(a, B, threads, stream);
+    return launch<__nv_bfloat16, __nv_bfloat16, kCausal, kPartial>(a, B, threads, stream);
+  if constexpr (!kPartial) {  // int8 KV is refused on a page-split mesh
+    if (q_dtype == kF32 && kv_dtype == kI8)
+      return launch<float, int8_t, kCausal, false>(a, B, threads, stream);
+    if (q_dtype == kBF16 && kv_dtype == kI8)
+      return launch<__nv_bfloat16, int8_t, kCausal, false>(a, B, threads, stream);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -269,6 +311,37 @@ int rb_paged_chunk_attention(const void* q, const void* k, const void* v, const 
          static_cast<const int*>(q_start), out, T, n_q, n_kv, hd, ps, P, tq, scale};
   return dispatch<true>(a, B, kChunkThreads, q_dtype, kv_dtype,
                         static_cast<cudaStream_t>(stream));
+}
+
+// Decode partial over page shard `shard`'s slice of the pool ([pages_local * ps,
+// n_kv, hd]; tables hold global page ids): acc [B, n_q, hd], m and l [B, n_q],
+// all float32, un-normalised.
+int rb_paged_decode_attention_partial(const void* q, const void* k, const void* v,
+                                      const void* tables, const void* ctx_lens, void* acc,
+                                      void* m, void* l, int B, int n_q, int n_kv, int hd,
+                                      int ps, int P, int shard, int pages_local, float scale,
+                                      int q_dtype, int kv_dtype, void* stream) {
+  Args a{q, k, v, nullptr, nullptr, static_cast<const int*>(tables),
+         static_cast<const int*>(ctx_lens), nullptr, acc, 1, n_q, n_kv, hd, ps, P, 1, scale,
+         static_cast<float*>(m), static_cast<float*>(l), shard, pages_local};
+  return dispatch<false, true>(a, B, kDecodeThreads, q_dtype, kv_dtype,
+                               static_cast<cudaStream_t>(stream));
+}
+
+// Chunk partial (T > 1, causal over q_start[b] + t): acc [B, T, n_q, hd], m and
+// l [B, T, n_q], float32, un-normalised. Pool and tables as for the decode partial.
+int rb_paged_chunk_attention_partial(const void* q, const void* k, const void* v,
+                                     const void* tables, const void* ctx_lens,
+                                     const void* q_start, void* acc, void* m, void* l, int B,
+                                     int T, int n_q, int n_kv, int hd, int ps, int P, int tq,
+                                     int shard, int pages_local, float scale, int q_dtype,
+                                     int kv_dtype, void* stream) {
+  Args a{q, k, v, nullptr, nullptr, static_cast<const int*>(tables),
+         static_cast<const int*>(ctx_lens), static_cast<const int*>(q_start), acc, T, n_q,
+         n_kv, hd, ps, P, tq, scale, static_cast<float*>(m), static_cast<float*>(l), shard,
+         pages_local};
+  return dispatch<true, true>(a, B, kChunkThreads, q_dtype, kv_dtype,
+                              static_cast<cudaStream_t>(stream));
 }
 
 const char* rb_error_string(int code) {

@@ -23,6 +23,11 @@ a null page table and ``ctx_len = 0``); prefill chunks are right-padded to
 ``prefill_chunk`` and pad tokens write their K/V into the reserved null page
 0 via an extra "trash" page-table column at logical position ``max_pages``.
 Every forward writes the KV pools in place.
+
+Tensor parallelism: with ``mesh=`` the params are one dict per shard
+(``parallel/sharding.py::shard_params``), the pool holds one K and one V
+tensor per shard, and every forward (prefill, K-step decode, speculative
+verify) runs on the mesh; sampling stays on rank 0's device.
 """
 
 from __future__ import annotations
@@ -47,7 +52,10 @@ from runbookai_tpu_torch.models.llama import (
     forward_impl,
     lm_head_logits,
 )
+from runbookai_tpu_torch.models.quant import is_quantized
 from runbookai_tpu_torch.ops.sampling import sample_tokens
+from runbookai_tpu_torch.parallel.mesh import Mesh
+from runbookai_tpu_torch.parallel.sharding import check_mesh
 
 
 @dataclass
@@ -93,6 +101,24 @@ def resolve_kv_dtype(name: Optional[str], default: torch.dtype) -> torch.dtype:
     return resolved
 
 
+def check_mesh_serving(cfg: LlamaConfig, layers: dict, ecfg: EngineConfig,
+                       mesh: Mesh) -> None:
+    """Refuse what the JAX engine refuses on a mesh, and raise for what it
+    serves on XLA there and the port has not ported. ``layers`` is the
+    params' layer dict, whole or one shard's."""
+    check_mesh(cfg, mesh)
+    if ecfg.kv_dtype == torch.int8:
+        if mesh.seq > 1:
+            raise ValueError("kv_dtype=int8 is not supported on a KV page-split "
+                             "mesh (seq axis > 1)")
+        if mesh.model > 1:
+            raise NotImplementedError("int8 KV on a tensor-parallel mesh is not "
+                                      "ported yet (ROADMAP.md queue 1, item 7)")
+    if mesh.tp > 1 and any(is_quantized(w) for w in layers.values()):
+        raise NotImplementedError("int8 weights under tensor parallelism are not "
+                                  "ported yet (ROADMAP.md queue 1, item 7)")
+
+
 def _unsupported(req: EngineRequest) -> Optional[str]:
     s = req.sampling
     if s.guided:
@@ -115,12 +141,20 @@ class EngineCore:
     _FINISHED_KEEP = 1024
 
     def __init__(self, model_cfg: LlamaConfig, params: Any, tokenizer: Any,
-                 engine_cfg: Optional[EngineConfig] = None, seed: int = 0):
+                 engine_cfg: Optional[EngineConfig] = None, seed: int = 0,
+                 mesh: Optional[Mesh] = None):
         self.cfg = model_cfg
         self.ecfg = engine_cfg or EngineConfig()
         self.params = params
         self.tokenizer = tokenizer
-        self.device = params["embed"].device
+        self.mesh = mesh
+        if mesh is None:
+            self.device = params["embed"].device
+        else:
+            if len(params) != mesh.tp:
+                raise ValueError(f"{len(params)} param shards for a mesh of {mesh.tp}")
+            check_mesh_serving(model_cfg, params[0]["layers"], self.ecfg, mesh)
+            self.device = mesh.devices[0]
         self.kv = KVCacheManager(
             n_layers=model_cfg.n_layers,
             num_pages=self.ecfg.num_pages,
@@ -130,6 +164,7 @@ class EngineCore:
             max_seq_len=self.ecfg.max_seq_len,
             dtype=self.ecfg.kv_dtype,
             device=self.device,
+            mesh=mesh,
         )
         self._kv_k = self.kv.pool.kv_k
         self._kv_v = self.kv.pool.kv_v
@@ -400,7 +435,7 @@ class EngineCore:
         hidden = forward_hidden(
             self.params, self.cfg, self._dev(tokens), self._dev(positions),
             self._kv_k, self._kv_v, self._dev(tables), self._dev(ctx_lens),
-            self.ecfg.page_size)
+            self.ecfg.page_size, mesh=self.mesh)
 
         done_rows: list[tuple[int, EngineRequest]] = []
         self.metrics["prefill_steps"] += 1
@@ -425,7 +460,7 @@ class EngineCore:
             # Every completed row's first output token in ONE batched draw;
             # only each row's final real token needs logits.
             last_h = hidden[torch.arange(b, device=self.device), self._dev(last_idx)]
-            last_logits = lm_head_logits(self.params, self.cfg, last_h)
+            last_logits = lm_head_logits(self.params, self.cfg, last_h, mesh=self.mesh)
             row_reqs: list[Optional[EngineRequest]] = [None] * b
             for i, req in done_rows:
                 row_reqs[i] = req
@@ -514,7 +549,7 @@ class EngineCore:
         for step in range(k):
             logits = forward_impl(self.params, self.cfg, tok, pos,
                                   self._kv_k, self._kv_v, tables_d, ctx,
-                                  self.ecfg.page_size)
+                                  self.ecfg.page_size, mesh=self.mesh)
             sampled = self._sample(logits[:, -1], reqs, ctx_lens + step)
             out.append(sampled)
             tok, pos, ctx = sampled[:, None].long(), pos + 1, ctx + 1
@@ -547,7 +582,7 @@ class EngineCore:
         logits = forward_impl(
             self.params, self.cfg, self._dev(tokens), self._dev(positions),
             self._kv_k, self._kv_v, self._dev(self._tables_for(self._slots)),
-            self._dev(ctx_lens), self.ecfg.page_size)
+            self._dev(ctx_lens), self.ecfg.page_size, mesh=self.mesh)
         toks = torch.argmax(logits, dim=-1).cpu().numpy()  # [B, k]
 
         emitted = 0

@@ -16,6 +16,13 @@ sequence) and prefill skips to the first novel token. Pages whose last
 reference drops move to an LRU of retired-but-resident pages and are only
 recycled under pool pressure.
 
+On a tensor-parallel mesh the pool is one K and one V tensor per shard,
+``[n_layers, tokens / seq, n_kv_heads / model, head_dim]``
+(``parallel/sharding.py::kv_pool_shard_shape``); page ids stay global, so
+the allocator, the page tables and the prefix cache do not change (page
+shard s owns global pages ``[s, s + 1) * num_pages / seq``, and the null
+page 0 lives on shard 0).
+
 The host side (allocator, hashing, prefix index) is a copy of the JAX
 package's pure-Python backend.
 """
@@ -29,12 +36,15 @@ from typing import Any, Optional, Sequence
 import numpy as np
 import torch
 
+from runbookai_tpu_torch.parallel.mesh import Mesh
+from runbookai_tpu_torch.parallel.sharding import kv_pool_shard_shape
+
 
 @dataclass
 class PagePool:
     """Device tensors for the paged KV cache."""
 
-    kv_k: Any  # a tensor, or an int8 pool's (values, scales)
+    kv_k: Any  # a tensor, an int8 pool's (values, scales), or one per shard
     kv_v: Any
     page_size: int
     num_pages: int
@@ -48,16 +58,27 @@ class PagePool:
         head_dim: int,
         dtype: torch.dtype = torch.bfloat16,
         device="cuda",
+        mesh: Optional[Mesh] = None,
     ) -> "PagePool":
+        """The pools on ``device`` or, with a ``mesh``, a list of each
+        shard's pools on its own device."""
         shape = (n_layers, num_pages * page_size, n_kv_heads, head_dim)
+        if mesh is not None:
+            shape = kv_pool_shard_shape(n_layers, num_pages, page_size, n_kv_heads,
+                                        head_dim, mesh)
 
-        def alloc():
-            vals = torch.zeros(shape, dtype=dtype, device=device)
+        def alloc(dev):
+            vals = torch.zeros(shape, dtype=dtype, device=dev)
             if dtype == torch.int8:
-                return vals, torch.zeros(shape[:3], dtype=torch.float32, device=device)
+                return vals, torch.zeros(shape[:3], dtype=torch.float32, device=dev)
             return vals
 
-        return PagePool(kv_k=alloc(), kv_v=alloc(), page_size=page_size,
+        if mesh is None:
+            kv_k, kv_v = alloc(device), alloc(device)
+        else:
+            kv_k = [alloc(dev) for dev in mesh.devices]
+            kv_v = [alloc(dev) for dev in mesh.devices]
+        return PagePool(kv_k=kv_k, kv_v=kv_v, page_size=page_size,
                         num_pages=num_pages)
 
 
@@ -213,9 +234,10 @@ class KVCacheManager:
         max_seq_len: int,
         dtype: torch.dtype = torch.bfloat16,
         device="cuda",
+        mesh: Optional[Mesh] = None,
     ):
         self.pool = PagePool.create(n_layers, num_pages, page_size, n_kv_heads,
-                                    head_dim, dtype, device=device)
+                                    head_dim, dtype, device=device, mesh=mesh)
         self.allocator = PageAllocator(num_pages)
         self.page_size = page_size
         self.max_pages_per_seq = (max_seq_len + page_size - 1) // page_size

@@ -9,7 +9,7 @@ inherited ``complete`` serves plain (unguided) completions through ``chat``.
 from __future__ import annotations
 
 import codecs
-from typing import Optional, Union
+from typing import Optional, Sequence, Union
 
 import torch
 
@@ -18,6 +18,7 @@ from runbookai_tpu_torch.engine.async_engine import AsyncEngine
 from runbookai_tpu_torch.engine.engine import (
     EngineConfig,
     EngineCore,
+    check_mesh_serving,
     resolve_kv_dtype,
 )
 from runbookai_tpu_torch.engine.request import SamplingParams
@@ -32,7 +33,20 @@ from runbookai_tpu_torch.models.llama import (
     init_params,
     init_params_quantized,
 )
+from runbookai_tpu_torch.parallel.kv_split import plan_kv_split
+from runbookai_tpu_torch.parallel.mesh import build_mesh
+from runbookai_tpu_torch.parallel.sharding import shard_params
 from runbookai_tpu_torch.utils.tokens import ByteTokenizer
+
+
+def serving_engine_config(cfg, kv_dtype: torch.dtype) -> EngineConfig:
+    """The serving configuration's engine: 16-token pages, 2048 pages, 8
+    decode slots, 512-token prefill chunks (4 rows a step), 8 decode steps
+    per dispatch."""
+    return EngineConfig(
+        page_size=16, num_pages=2048, max_batch_slots=8, prefill_chunk=512,
+        max_seq_len=min(8192, cfg.max_seq_len), kv_dtype=kv_dtype,
+        decode_steps_per_dispatch=8, prefill_batch=4)
 
 
 def resolve_device(device) -> torch.device:
@@ -87,18 +101,35 @@ class TorchCudaClient(BaseLLMClient):
     def build(cls, model: str = "llama3-8b-instruct", device="cuda",
               dtype: Union[torch.dtype, str] = torch.bfloat16,
               kv_cache_dtype: str = "auto", seed: int = 0,
-              engine_cfg: Optional[EngineConfig] = None,
+              engine_cfg: Optional[EngineConfig] = None, tp: int = 1,
+              devices: Optional[Sequence] = None,
               **client_kw) -> "TorchCudaClient":
         """Engine + client for ``model``, initialised at random from ``seed``
         directly on ``device``, with the byte tokenizer. ``dtype="int8"``
         means int8 layer weights (``init_params_quantized``) with bfloat16
         activations, embeddings, norms and LM head. ``kv_cache_dtype``
         ("auto" = the activation dtype, "bf16", "int8") picks the KV pool
-        (``resolve_kv_dtype``). The default engine is the serving
-        configuration's: 16-token pages, 2048 pages, 8 decode slots,
-        512-token prefill chunks, 8 decode steps per dispatch."""
+        (``resolve_kv_dtype``). The default engine is
+        :func:`serving_engine_config`'s.
+
+        ``tp`` > 1 serves on a tensor-parallel mesh planned by
+        ``plan_kv_split``: ``model`` = the kv shards, ``seq`` = the page
+        shards (for the 8B, tp=8 is 8 x 1 and tp=16 is 8 x 2). ``devices``
+        lists one device per shard (repeat a device to hold several shards
+        on it); without it the mesh takes one CUDA card per shard, or, for
+        ``device="cpu"``, the CPU for every shard. The params are drawn on
+        the first device and then cut into shards."""
         dev = resolve_device(device)
         cfg = get_config(model)
+        mesh = None
+        if tp > 1:
+            if devices is None and dev.type == "cpu":
+                devices = [dev] * tp
+            plan = plan_kv_split(cfg, tp)
+            mesh = build_mesh(plan.kv_shards, plan.pg_shards,
+                              [resolve_device(d) for d in devices]
+                              if devices is not None else None)
+            dev = mesh.devices[0]
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         if dtype == "int8":
@@ -107,12 +138,12 @@ class TorchCudaClient(BaseLLMClient):
         else:
             act = dtype
             params = init_params(cfg, dtype=act, device=dev, generator=gen)
-        ecfg = engine_cfg or EngineConfig(
-            page_size=16, num_pages=2048, max_batch_slots=8, prefill_chunk=512,
-            max_seq_len=min(8192, cfg.max_seq_len),
-            kv_dtype=resolve_kv_dtype(kv_cache_dtype, act),
-            decode_steps_per_dispatch=8, prefill_batch=4)
-        core = EngineCore(cfg, params, ByteTokenizer(), ecfg, seed=seed)
+        ecfg = engine_cfg or serving_engine_config(
+            cfg, resolve_kv_dtype(kv_cache_dtype, act))
+        if mesh is not None:
+            check_mesh_serving(cfg, params["layers"], ecfg, mesh)
+            params = shard_params(params, cfg, mesh)
+        core = EngineCore(cfg, params, ByteTokenizer(), ecfg, seed=seed, mesh=mesh)
         return cls(core, core.tokenizer,
                    chat_format=format_for_model(model, cfg.family), **client_kw)
 

@@ -17,6 +17,11 @@ The counterpart of ``runbookai_tpu/models/llama.py`` on one GPU:
   matrices may be ``{"q", "s"}`` leaves, multiplied by :func:`qmm`. The KV
   pools may be int8 ``(values, scales)`` tuples
   (:mod:`runbookai_tpu_torch.ops.attention`).
+- Tensor parallelism: with ``mesh=`` (:mod:`runbookai_tpu_torch.parallel`)
+  the params are one dict per shard (``shard_params``) and the pools one
+  per shard; the forward loops over the shards inside the layer loop and
+  writes out the collectives that XLA inserts from the JAX package's
+  shardings (:func:`_forward_hidden_sharded`).
 """
 
 from __future__ import annotations
@@ -31,10 +36,21 @@ from runbookai_tpu_torch.models.quant import is_quantized
 from runbookai_tpu_torch.ops.attention import write_kv_pages_batch
 from runbookai_tpu_torch.ops.paged_attention import (
     paged_chunk_attention,
+    paged_chunk_attention_tp,
     paged_decode_attention,
+    paged_decode_attention_tp,
 )
 from runbookai_tpu_torch.ops.qmm import qmm_eligible, qmm_int8
 from runbookai_tpu_torch.ops.rope import rope_cos_sin, rotate
+from runbookai_tpu_torch.parallel import kv_split
+from runbookai_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_gather,
+    all_reduce_sum,
+    map_replicated,
+    replicate,
+)
+from runbookai_tpu_torch.parallel.sharding import check_mesh, param_splits
 
 Params = dict[str, Any]
 
@@ -345,10 +361,15 @@ def ffn_block(y: torch.Tensor, lp: dict, cfg: LlamaConfig) -> torch.Tensor:
                lp["w_down"])
 
 
-def lm_head_logits(params: Params, cfg: LlamaConfig,
-                   hidden: torch.Tensor) -> torch.Tensor:
+def lm_head_logits(params: Params, cfg: LlamaConfig, hidden: torch.Tensor,
+                   mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Final norm + (tied or untied) LM head. The product runs in the
-    activation dtype; the logits are cast to float32 after it."""
+    activation dtype; the logits are cast to float32 after it. With a
+    ``mesh``, ``params`` holds one dict per shard: each shard projects onto
+    its vocabulary slice and the slices are concatenated on rank 0's device
+    (the sampling device)."""
+    if mesh is not None:
+        return _lm_head_sharded(params, cfg, hidden, mesh)
     h = rms_norm(hidden, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return (h @ head).float()
@@ -375,13 +396,18 @@ def forward_hidden(
     page_tables: torch.Tensor,  # [B, max_pages(+1)] int32
     ctx_lens: torch.Tensor,  # [B] int32 cache length AFTER this chunk
     page_size: int,
+    mesh: Optional[Mesh] = None,
 ) -> torch.Tensor:
     """Transformer stack over one paged chunk, WITHOUT the LM head.
 
     Returns hidden [B, T, D]. ``kv_k``/``kv_v`` are updated IN PLACE: each
     layer's chunk K/V are written into its pool slice before attention.
     T = 1 runs the decode kernel, T > 1 the chunk kernel; on CPU tensors
-    both run their plain versions."""
+    both run their plain versions. With a ``mesh``, ``params`` and the pools
+    hold one entry per shard (:func:`_forward_hidden_sharded`)."""
+    if mesh is not None:
+        return _forward_hidden_sharded(params, cfg, tokens, positions, kv_k, kv_v,
+                                       page_tables, ctx_lens, page_size, mesh)
     _require_dense(cfg)
     b, t = tokens.shape
     hd, n_kv, n_q = cfg.head_dim, cfg.n_kv_heads, cfg.n_heads
@@ -423,9 +449,123 @@ def forward_impl(
     page_tables: torch.Tensor,
     ctx_lens: torch.Tensor,
     page_size: int,
+    mesh: Optional[Mesh] = None,
 ) -> torch.Tensor:
     """One forward chunk: logits [B, T, vocab] float32. The KV pools are
     updated in place (see :func:`forward_hidden`)."""
     h = forward_hidden(params, cfg, tokens, positions, kv_k, kv_v,
-                       page_tables, ctx_lens, page_size)
-    return lm_head_logits(params, cfg, h)
+                       page_tables, ctx_lens, page_size, mesh=mesh)
+    return lm_head_logits(params, cfg, h, mesh=mesh)
+
+
+# ------------------------------------------------------- tensor parallelism
+
+
+def _embed_sharded(shards: list[Params], cfg: LlamaConfig, tokens: list,
+                   mesh: Mesh) -> list[torch.Tensor]:
+    """Vocab-split embedding: each shard looks up the tokens in its own rows
+    (zeros for the others), and the shards' results are summed."""
+    if param_splits(cfg, mesh)["embed"] is None:
+        return replicate(shards[0]["embed"][tokens[0]], mesh)
+    parts = []
+    for rank, shard in enumerate(shards):
+        emb = shard["embed"]
+        local = tokens[rank] - rank * emb.shape[0]
+        inside = (local >= 0) & (local < emb.shape[0])
+        rows = emb[local.clamp(0, emb.shape[0] - 1)]
+        parts.append(torch.where(inside[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                                      device=rows.device)))
+    return all_reduce_sum(parts, mesh)
+
+
+def _lm_head_sharded(shards: list[Params], cfg: LlamaConfig, hidden: torch.Tensor,
+                     mesh: Mesh) -> torch.Tensor:
+    home = mesh.devices[0]
+    hs = map_replicated(lambda h: rms_norm(h, shards[0]["final_norm"].to(h.device),
+                                           cfg.norm_eps), replicate(hidden, mesh))
+    split = param_splits(cfg, mesh)["embed" if cfg.tie_embeddings else "lm_head"]
+    ranks = range(mesh.tp) if split is not None else range(1)
+    parts = []
+    for rank in ranks:
+        head = shards[rank]["embed"].T if cfg.tie_embeddings else shards[rank]["lm_head"]
+        parts.append((hs[rank] @ head).float())
+    return all_gather(parts, dim=-1, device=home)
+
+
+def _forward_hidden_sharded(shards: list[Params], cfg: LlamaConfig,
+                            tokens: torch.Tensor, positions: torch.Tensor,
+                            kv_k: list, kv_v: list, page_tables: torch.Tensor,
+                            ctx_lens: torch.Tensor, page_size: int,
+                            mesh: Mesh) -> torch.Tensor:
+    """The forward on a ``model`` x ``seq`` mesh, one shard at a time inside
+    the layer loop. Shard r (TP rank ``m * seq + s``) holds query heads
+    ``[r, r + 1) * n_q / tp``, kv heads ``[m, m + 1) * n_kv / model`` and
+    its own pool ``[L, tokens / seq, n_kv / model, hd]``. Written out are the
+    collectives that XLA inserts from the shardings: the vocab-split
+    embedding's sum, the sums of the row-parallel partial products after
+    ``wo`` and ``w_down``, and the merge of the page shards' attention
+    partials. Routing follows the JAX forward: page-split attention when
+    ``seq`` > 1 (the partial kernels), else the decode and chunk kernels per
+    head shard. Returns hidden [B, T, D] on rank 0's device."""
+    _require_dense(cfg)
+    check_mesh(cfg, mesh)
+    splits = param_splits(cfg, mesh)
+    b, t = tokens.shape
+    hd, tp = cfg.head_dim, mesh.tp
+    nql, nkvl = cfg.n_heads // tp, cfg.n_kv_heads // mesh.model
+    tok, pos, tables, ctx = (replicate(x, mesh) for x in
+                             (tokens, positions, page_tables, ctx_lens))
+    rope = map_replicated(
+        lambda p: rope_cos_sin(p, hd, cfg.rope_theta, cfg.rope_scaling), pos)
+    if mesh.seq > 1:
+        # Each page shard keeps only the writes to its own pages; the rows
+        # are the same in every layer.
+        dests = [kv_split.split_destinations(
+            pos[r], tables[r], page_size, mesh.coords(r)[1], kv_k[r].shape[1])
+            for r in range(tp)]
+    ffn_ranks = range(tp) if splits["layers.w_down"] is not None else range(1)
+    h = _embed_sharded(shards, cfg, tok, mesh)
+    for i in range(cfg.n_layers):
+        lps = [{name: _layer(w, i) for name, w in shard["layers"].items()}
+               for shard in shards]
+        x = map_replicated(lambda a: rms_norm(a, lps[0]["attn_norm"].to(a.device),
+                                              cfg.norm_eps), h)
+        qs, k_pools, v_pools = [], [], []
+        for r, lp in enumerate(lps):
+            cos, sin = rope[r]
+            q, k, v = qmm(x[r], lp["wq"]), qmm(x[r], lp["wk"]), qmm(x[r], lp["wv"])
+            if cfg.qkv_bias:
+                q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+            q = rotate(q.reshape(b, t, nql, hd), cos, sin)
+            k = rotate(k.reshape(b, t, nkvl, hd), cos, sin)
+            v = v.reshape(b, t, nkvl, hd)
+            k_pool, v_pool = _layer(kv_k[r], i), _layer(kv_v[r], i)
+            if mesh.seq > 1:
+                kv_split.write_rows(k_pool, k, *dests[r])
+                kv_split.write_rows(v_pool, v, *dests[r])
+            else:
+                write_kv_pages_batch(k_pool, k, pos[r], tables[r], page_size)
+                write_kv_pages_batch(v_pool, v, pos[r], tables[r], page_size)
+            qs.append(q)
+            k_pools.append(k_pool)
+            v_pools.append(v_pool)
+        if mesh.seq > 1 and t == 1:
+            attn = [a[:, None] for a in kv_split.paged_decode_attention_kv_split(
+                mesh, [q[:, 0] for q in qs], k_pools, v_pools, tables, ctx, page_size)]
+        elif mesh.seq > 1:
+            attn = kv_split.paged_attention_kv_split(
+                mesh, qs, k_pools, v_pools, tables, ctx, pos, page_size)
+        elif t == 1:
+            attn = [a[:, None] for a in paged_decode_attention_tp(
+                [q[:, 0] for q in qs], k_pools, v_pools, tables, ctx, page_size)]
+        else:
+            attn = paged_chunk_attention_tp(qs, k_pools, v_pools, tables, ctx, pos,
+                                            page_size)
+        o = all_reduce_sum([qmm(a.reshape(b, t, nql * hd), lp["wo"])
+                            for a, lp in zip(attn, lps)], mesh)
+        h = map_replicated(torch.add, h, o)
+        y = map_replicated(lambda a: rms_norm(a, lps[0]["mlp_norm"].to(a.device),
+                                              cfg.norm_eps), h)
+        f = all_reduce_sum([ffn_block(y[r], lps[r], cfg) for r in ffn_ranks], mesh)
+        h = map_replicated(torch.add, h, f)
+    return h[0]

@@ -34,6 +34,12 @@ SIGNATURES = {
     # q, k, v, k_scale, v_scale, tables, ctx_lens, q_start, out, B, T, n_q,
     # n_kv, hd, ps, P, tq, scale, q_dtype, kv_dtype, stream
     "rb_paged_chunk_attention": [_p] * 9 + [_i] * 8 + [_f, _i, _i, _p],
+    # q, k, v, tables, ctx_lens, acc, m, l, B, n_q, n_kv, hd, ps, P, shard,
+    # pages_local, scale, q_dtype, kv_dtype, stream
+    "rb_paged_decode_attention_partial": [_p] * 8 + [_i] * 8 + [_f, _i, _i, _p],
+    # q, k, v, tables, ctx_lens, q_start, acc, m, l, B, T, n_q, n_kv, hd, ps,
+    # P, tq, shard, pages_local, scale, q_dtype, kv_dtype, stream
+    "rb_paged_chunk_attention_partial": [_p] * 9 + [_i] * 10 + [_f, _i, _i, _p],
     # x, q, s, out, partial, M, K, N, k_split, x_dtype, stream
     "rb_qmm_int8": [_p] * 5 + [_i] * 5 + [_p],
 }

@@ -196,4 +196,6 @@ def test_cli_chat_on_cpu():
                                         "paged_chunk_attention": 0,
                                         "paged_decode_attention_int8": 0,
                                         "paged_chunk_attention_int8": 0,
+                                        "paged_decode_attention_partial": 0,
+                                        "paged_chunk_attention_partial": 0,
                                         "qmm_int8": 0}
