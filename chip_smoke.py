@@ -10,13 +10,20 @@ Phases (any failure exits non-zero; one JSON object per phase on stdout):
 2. hold the decode kernel against its plain version at the serving shapes
    (B=8, 32 query / 8 kv heads, head_dim 128, 16-token pages, 513-wide
    tables, ctx 0..8191) for bf16 and f32 pools, and time it;
-3. hold the chunk kernel against its plain version on a 4 x 512 prefill at
-   offsets 0 and 512, a T=8 verify from ctx-1, and a chunk with a pad tail,
-   and time the prefill and the verify inputs; both kernel phases show that
-   the tolerance rejects a result with the last page dropped;
+3. hold the chunk kernels against their plain version on a 4 x 512 prefill
+   at offsets 0 and 512, a T=8 verify from ctx-1, and a chunk with a pad
+   tail: bf16 queries take the tensor-core kernel (``chunk_attention.cu``),
+   also on a one-row 512-token prefill at offset 4096 (64-row tiles, split
+   in two), a T=8 verify at the served contexts (at most 950 tokens) and
+   the tp=8 head shard's shape (4 query heads over 1 kv head), each input
+   with its split count, and each split input once more unsplit; f32
+   queries take the CUDA-core kernel. The merge of a split call is held
+   against ``merge_partials``. The prefill and verify inputs are timed;
+   both kernel phases show that the tolerance rejects a result with the
+   last page dropped;
 4. the same two checks over int8 pools (values + one f32 scale per token
    and kv head, quantized from random bf16) with bf16 and f32 queries: the
-   int8 decode kernel (K3) and the chunk kernel's int8 instantiation;
+   int8 decode kernel (K3) and the chunk kernels over int8 pools;
 5. hold the int8 weight matmul kernel (K5) against its plain version at
    the 8B's four (K, N) shapes and M = 5, 8, 64, 256, show that the
    tolerance rejects a result with the last K slice dropped, and time it
@@ -29,11 +36,18 @@ Phases (any failure exits non-zero; one JSON object per phase on stdout):
    1024 prompt tokens, 32 new tokens each. Kernel launch counts are zeroed
    just before and read just after; both must rise;
 8. serve the same requests once more under torch.profiler: device time by
-   kernel class and the device's idle share. Both serving phases fail if
-   the engine loop crashed or a request was aborted;
+   kernel class and the device's idle share; it fails unless the bf16
+   chunk calls ran the tensor-core kernel and never the CUDA-core kernel's
+   bf16-query instantiation. Both serving phases fail if the engine loop
+   crashed or a request was aborted, and the first if no split chunk call
+   was merged;
 9. phases 7 and 8 again with int8 weights and an int8 KV pool
    (``TorchCudaClient.build(dtype="int8", kv_cache_dtype="int8")``): the
    int8 kernels' counts must rise and the bf16 attention counts stay 0;
+   then, for both configurations, the requests served twice more with every
+   chunk call of the forward held against its plain version on the same
+   inputs (fails beyond TOL), once serving the kernel's result and once the
+   plain version's, and where their greedy streams part from phase 7's;
 10. the page-split partial kernels (K4 for decode, the chunk partial for
    T > 1) on phase 2's and phase 3's inputs cut into two page shards of
    1024 pages, at the shape of one call of phase 12's path (one model
@@ -54,6 +68,17 @@ Phases (any failure exits non-zero; one JSON object per phase on stdout):
 
 Then it prints the kernels' line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --serve-ab DIR
+
+runs instead a same-card A/B of phases 7 to 9 (bf16 and int8 serving, each
+after an unrecorded warm-up run, and their profiled reruns) between DIR,
+another checkout of the repository (for example a parent commit unpacked
+with ``git archive``), and this one, each by its own ``chip_smoke.py`` in a
+fresh process, in the order DIR, this, this, DIR; every line goes to
+``OUT_DIR/serve_ab.jsonl``. It lives here because a checkout's serving
+phases are reached only through its own ``chip_smoke.py``, and it is the
+committed source of PERF.md's same-card serving comparisons.
 """
 
 from __future__ import annotations
@@ -154,6 +179,21 @@ def device_ms(fn, iters: int, warmup: int = 2) -> float:
     return total_us / iters / 1e3
 
 
+def host_ms(fn, iters: int = 50) -> float:
+    """Host time per call of ``fn`` (checks, allocations, launches), calls
+    back to back without a sync: what a serving step pays on the CPU."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / iters * 1e3
+
+
 def bound(n_bytes: float, flops: float, dtype_name: str) -> tuple[float, str]:
     t_bytes = n_bytes / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
@@ -246,7 +286,7 @@ def gather_for_library(q4, k, v, tables, ctx_lens, kv_len):
     n_pages = -(-kv_len // PS)
     rows = (tables[:, :n_pages].long()[:, :, None] * PS
             + torch.arange(PS, device=k.device)).reshape(len(ctx_lens), -1)
-    group = N_Q // N_KV
+    group = q4.shape[2] // k.shape[1]
     kk = k[rows].permute(0, 2, 1, 3).repeat_interleave(group, dim=1).contiguous()
     vv = v[rows].permute(0, 2, 1, 3).repeat_interleave(group, dim=1).contiguous()
     return q4.permute(0, 2, 1, 3).contiguous(), kk, vv
@@ -318,14 +358,26 @@ def phase_decode(pa, torch, int8: bool = False) -> dict:
     return result
 
 
+# Served contexts before a T=8 verify: the serving phases' prompts (83 to
+# 918 tokens) plus their completions; every ctx at most 950.
+SERVED_CTX = [83, 150, 266, 397, 512, 640, 800, 942]
+
+
 def chunk_inputs(torch, dev, gen, dtype, kind):
-    """(q, k, v, tables, ctx, positions, real tokens per row)."""
+    """(q, k, v, tables, ctx, positions, real tokens per row). ``tp8_shard``
+    is the verify input cut to one head shard of tp=8: 4 query heads over
+    1 kv head. ``prefill_one_row`` is the engine's prefill of a single row
+    (padded to 512 tokens): 256 blocks of 64 rows, so ``chunk_plan`` splits
+    it in two; at offset 4096 both splits hold keys, and causal rows."""
     trash = MAX_PAGES * PS
     if kind == "prefill":  # 4 x 512 tokens at offsets 0 and 512
         t, starts, real = 512, [0, 512, 0, 512], [512] * 4
-    elif kind == "verify":  # T=8 from ctx-1
+    elif kind == "prefill_one_row":  # 512 tokens at offset 4096: ctx 4608, 288 columns
+        t, starts, real = 512, [4096], [512]
+    elif kind in ("verify", "tp8_shard", "verify_served"):  # T=8 from ctx-1
         t = 8
-        before = [1, 16, 17, 1000, 8100, 300, 4097, 64]
+        before = (SERVED_CTX if kind == "verify_served"
+                  else [1, 16, 17, 1000, 8100, 300, 4097, 64])
         starts, real = [c - 1 for c in before], [8] * 8
     else:  # pad tail: 100 real tokens, a full chunk, a pad row, 37 tokens
         t, starts, real = 512, [0, 512, trash, 1024], [100, 512, 0, 37]
@@ -339,6 +391,9 @@ def chunk_inputs(torch, dev, gen, dtype, kind):
             tables[i] = 0  # the engine's pad row: null table, ctx 1
     q = torch.randn((len(starts), t, N_Q, HD), generator=gen, device=dev).to(dtype)
     ctx = torch.tensor(ctx_lens, dtype=torch.int32, device=dev)
+    if kind == "tp8_shard":
+        n_q = N_Q // N_KV
+        q, k, v = q[..., :n_q, :].contiguous(), k[:, :1].contiguous(), v[:, :1].contiguous()
     return q, k, v, tables, ctx, pos, real
 
 
@@ -348,7 +403,11 @@ def time_chunk(pa, torch, q, k, v, tables, ctx, pos, dtype_name: str) -> dict:
 
     dev = q.device
     q_start = pos[:, 0].contiguous()
-    ms = time_ms(lambda: pa.paged_chunk_attention(q, k, v, tables, ctx, pos, PS))
+
+    def call():
+        return pa.paged_chunk_attention(q, k, v, tables, ctx, pos, PS)
+
+    ms = time_ms(call)
     plain_ms = time_ms(lambda: pa.plain_paged_attention(
         q, k, v, tables, ctx, q_start, PS), iters=3, warmup=1)
     t = q.shape[1]
@@ -364,14 +423,78 @@ def time_chunk(pa, torch, q, k, v, tables, ctx, pos, dtype_name: str) -> dict:
     pairs = sum(min(c, s + i + 1) for c, s in zip(ctx_l, start_l) for i in range(t))
     n_bytes = (2 * q.numel() * q.element_size() + sum(ctx_l) * 2 * token_bytes(k)
                + sum(-(-c // PS) for c in ctx_l) * 4 + 2 * len(ctx_l) * 4)
-    bound_ms, bound_by = bound(n_bytes, 4.0 * pairs * N_Q * HD, dtype_name)
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+    bound_ms, bound_by = bound(n_bytes, 4.0 * pairs * q.shape[2] * HD, dtype_name)
+    return {"ms": ms, "device_ms": device_ms(call, iters=10), "host_ms": host_ms(call),
+            "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def unsplit_case(pa, torch, q, k, v, tables, ctx, pos, ref, dtype_name: str) -> dict:
+    """The tensor-core kernel on a split input run unsplit (one block per
+    sequence, kv head and row tile walks every column, no merge), held
+    against the plain version, with its times: what the split buys, or
+    costs, at this input."""
+    import dataclasses
+
+    ks = vs = None
+    if isinstance(k, tuple):
+        (k, ks), (v, vs) = k, v
+    b, t, n_q, hd = q.shape
+    plan = pa.chunk_plan(b, t, n_q, k.shape[1], hd, tables.shape[1])
+    whole = dataclasses.replace(plan, splits=1, cols=tables.shape[1], workspace_bytes=0)
+    q_start = pos[:, 0].contiguous()
+
+    def call():
+        return pa._chunk_mma(q, k, v, ks, vs, tables, ctx, q_start, PS, whole)
+
+    err = compare(call(), ref, dtype_name, f"chunk unsplit {dtype_name}")
+    return {"max_abs_err": err, "ms": time_ms(call), "device_ms": device_ms(call, iters=10)}
+
+
+# Inputs of the chunk phases: f32 queries (the CUDA-core kernel) on the first
+# three, bf16 queries (the tensor-core kernel) on all six. The prefill and the
+# verify inputs are timed for both, the last three for bf16; a split bf16
+# input is also timed unsplit.
+CHUNK_KINDS = ("prefill", "verify", "pad_tail")
+MMA_KINDS = CHUNK_KINDS + ("prefill_one_row", "verify_served", "tp8_shard")
+
+
+def chunk_plan_of(pa, q, k, tables):
+    """``chunk_plan`` of a chunk call on these inputs (k a pool or an int8
+    tuple)."""
+    b, t, n_q, hd = q.shape
+    n_kv = (k[0] if isinstance(k, tuple) else k).shape[1]
+    return pa.chunk_plan(b, t, n_q, n_kv, hd, tables.shape[1])
+
+
+def merge_case(pa, torch, q, k, v, tables, ctx, q_start) -> dict:
+    """The merge kernel against ``merge_partials`` and the cast, in bf16 and
+    f32, on the plain partials of the splits ``chunk_plan`` gives these
+    inputs; its times, and its bound (the partials read once, the output
+    written once)."""
+    plan = chunk_plan_of(pa, q, k, tables)
+    acc, m, l = pa.plain_chunk_partials(q, k, v, tables, ctx, q_start, PS, plan.cols)
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        got = pa.chunk_merge(acc, m, l, dtype)
+        want = pa.merge_partials(list(zip(acc, m, l)), q.device).to(dtype)
+        torch.cuda.synchronize()
+        errs[name] = compare(got, want, name, f"chunk merge of {plan.splits} splits ({name})")
+    n_bytes = 4 * (acc.numel() + m.numel() + l.numel()) + 2 * acc[0].numel()
+    bound_ms, bound_by = bound(n_bytes, 3.0 * acc.numel(), "float32")
+    return {"splits": plan.splits, "max_abs_err": errs["bfloat16"], "errs": errs,
+            "ms": time_ms(lambda: pa.chunk_merge(acc, m, l, torch.bfloat16)),
+            "plain_ms": time_ms(lambda: pa.merge_partials(list(zip(acc, m, l)), q.device)
+                                .to(torch.bfloat16), iters=5, warmup=1),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
 def phase_chunk(pa, torch, int8: bool = False) -> dict:
-    """K2 over bf16 and f32 pools or, with ``int8``, its int8 instantiation
-    over int8 pools quantized from them."""
+    """The chunk kernels over bf16 and f32 pools or, with ``int8``, over int8
+    pools quantized from them: bf16 queries on the tensor-core kernel with
+    its split count per input, f32 queries on the CUDA-core kernel; the
+    merge kernel on the verify input's splits."""
     from runbookai_tpu_torch.ops.attention import quantize_kv
 
     dev = torch.device(DEVICE)
@@ -379,12 +502,14 @@ def phase_chunk(pa, torch, int8: bool = False) -> dict:
     result: dict = {"phase": "chunk_int8_kernel" if int8 else "chunk_kernel"}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
-        errs, wrong, timed = {}, {}, {}
-        for kind in ("prefill", "verify", "pad_tail"):
+        mma = dtype == torch.bfloat16
+        errs, wrong, timed, splits = {}, {}, {}, {}
+        for kind in (MMA_KINDS if mma else CHUNK_KINDS):
             q, k, v, tables, ctx, pos, real = chunk_inputs(torch, dev, gen, dtype, kind)
             if int8:
                 k, v = quantize_kv(k), quantize_kv(v)
             q_start = pos[:, 0].contiguous()
+            splits[kind] = chunk_plan_of(pa, q, k, tables).splits
             out = pa.paged_chunk_attention(q, k, v, tables, ctx, pos, PS)
             ref = pa.plain_paged_attention(q, k, v, tables, ctx, q_start, PS)
             torch.cuda.synchronize()
@@ -394,13 +519,21 @@ def phase_chunk(pa, torch, int8: bool = False) -> dict:
             sel = torch.tensor(live, device=dev)
             wrong[kind] = drop_last_page(pa, q[sel], k, v, tables[sel], ctx[sel],
                                          q_start[sel], ref[sel], name)
-            # Time the prefill input (the heaviest chunk call) and the T=8
-            # verify (most of the main path's chunk launches).
+            # Time the prefill input (the heaviest chunk call), the T=8
+            # verify (most of the main path's chunk launches) and, in bf16,
+            # the one-row prefill, the verify at the served contexts and on
+            # one tp=8 head shard.
             if kind != "pad_tail":
                 timed[kind] = time_chunk(pa, torch, q, k, v, tables, ctx, pos, name)
+                if mma and splits[kind] > 1:
+                    timed[kind]["unsplit"] = unsplit_case(pa, torch, q, k, v, tables, ctx,
+                                                          pos, ref, name)
+            if mma and kind == "verify":
+                timed["merge"] = merge_case(pa, torch, q, k, v, tables, ctx, q_start)
             del q, k, v, out, ref
-        result[name] = {"max_abs_err": max(errs.values()), "errs": errs,
-                        "tol": TOL[name], **timed["prefill"], "verify": timed["verify"],
+        result[name] = {"route": "mma" if mma else "cuda_core",
+                        "max_abs_err": max(errs.values()), "errs": errs, "splits": splits,
+                        "tol": TOL[name], **timed.pop("prefill"), **timed,
                         "drop_last_page": wrong}
     return result
 
@@ -953,7 +1086,7 @@ def counts() -> dict:
     from runbookai_tpu_torch.ops import paged_attention as pa
     from runbookai_tpu_torch.ops import qmm as qm
 
-    return {**pa.launches, **qm.launches}
+    return {**pa.launches, **pa.merge_launches, **qm.launches}
 
 
 def free_device(torch) -> None:
@@ -1000,6 +1133,10 @@ def phase_engine(torch, weights: str = "bfloat16") -> dict:
             or any(launched[k] for k in spec["never"])):
         raise AssertionError(f"main path ({weights}) skipped a kernel or ran one of "
                              f"the other configuration: {launched}")
+    # Every T=8 verify call of 8 slots has fewer blocks than two per SM, so
+    # chunk_plan splits it and the merge kernel runs.
+    if weights != "kv_split" and not launched["paged_chunk_merge"]:
+        raise AssertionError(f"main path ({weights}) merged no split chunk call")
     ttft = [r.usage["ttft_ms"] for r in resps]
     result = {"phase": ENGINE_PHASES[weights],
               "model": ENGINE_MODEL, "dtype": "bfloat16" if weights == "kv_split" else weights,
@@ -1062,12 +1199,36 @@ def check_served(client, resps, n_requests: int):
     return done, finished
 
 
-def kernel_class(name: str) -> str:
-    if "paged_attention_kernel<" in name:  # <TQ, TKV, kCausal, kPartial>
-        args = name.split("paged_attention_kernel<", 1)[1].split(">", 1)[0].split(", ")
+INT8_ARGS = ("signed char", "int8_t")
+
+
+def template_args(name: str, kernel: str):
+    """The template arguments of a profiled ``kernel<...>``, or None."""
+    if kernel + "<" not in name:
+        return None
+    return name.split(kernel + "<", 1)[1].split(">", 1)[0].split(", ")
+
+
+def old_bf16_chunk(name: str) -> bool:
+    """The CUDA-core kernel's bf16-query causal non-partial instantiation,
+    which bf16 chunk calls no longer reach."""
+    args = template_args(name, "paged_attention_kernel")  # <TQ, TKV, kCausal, kPartial>
+    return bool(args) and args[0] == "__nv_bfloat16" and args[2:4] == ["true", "false"]
+
+
+def kernel_class(name: str, int8_pools: bool = False) -> str:
+    """A profiled kernel's class; the merge of a split chunk call counts with
+    the chunk class of the run's pool type (``int8_pools``)."""
+    args = template_args(name, "paged_attention_kernel")  # <TQ, TKV, kCausal, kPartial>
+    if args:
         cls = "chunk_attention" if args[2] == "true" else "decode_attention"
         cls += "_partial" if args[3] == "true" else ""
-        return cls + ("_int8" if args[1] in ("signed char", "int8_t") else "")
+        return cls + ("_int8" if args[1] in INT8_ARGS else "")
+    args = template_args(name, "chunk_attention_mma_kernel")  # <TKV, HD, WARPS>
+    if args:
+        return "chunk_attention" + ("_int8" if args[0] in INT8_ARGS else "")
+    if "chunk_merge_kernel<" in name:
+        return "chunk_attention" + ("_int8" if int8_pools else "")
     if "qmm" in name:  # before the matmul test: the int8 weight kernel
         return "qmm"
     if any(s in name.lower() for s in ("gemm", "nvjet", "cutlass", "xmma")):
@@ -1095,10 +1256,15 @@ def phase_profile(torch, weights: str = "bfloat16") -> dict:
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         name, ms = e.name, e.time_range.elapsed_us() / 1e3
-        acc = classes.setdefault(kernel_class(name), [0.0, 0])
+        acc = classes.setdefault(kernel_class(name, weights == "int8"), [0.0, 0])
         acc[0] += ms
         acc[1] += 1
         by_name[name] = by_name.get(name, 0.0) + ms
+    if weights != "kv_split":  # the chunk calls' route
+        old = [n for n in by_name if old_bf16_chunk(n)]
+        if old or not any("chunk_attention_mma_kernel<" in n for n in by_name):
+            raise AssertionError(f"{weights} profile: bf16 chunk calls missed the "
+                                 f"tensor-core kernel or ran {old[:1]}")
     busy = sum(v[0] for v in classes.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     return {"phase": ENGINE_PHASES[weights] + "_profile",
@@ -1110,11 +1276,119 @@ def phase_profile(torch, weights: str = "bfloat16") -> dict:
             "top_kernels_ms": {n[:120]: ms for n, ms in top}}
 
 
+def first_divergence(a: list[list[int]], b: list[list[int]]):
+    """(request, position) of the first greedy token where two runs differ,
+    or None."""
+    for i, (s, t) in enumerate(zip(a, b)):
+        for j, (x, y) in enumerate(zip(s, t)):
+            if x != y:
+                return [i, j]
+        if len(s) != len(t):
+            return [i, min(len(s), len(t))]
+    return None
+
+
+def phase_witness(torch, pa, weights: str, served: dict) -> dict:
+    """The serving phase's requests twice more, with every chunk attention
+    call of the forward made twice: the kernel, and its plain version on the
+    same inputs (f32 throughout, rounded once), each call's result held
+    against the other at TOL (fails beyond it). The first run serves the
+    kernel's result, as the serving phase did; the second serves the plain
+    version's, which shows how far the greedy streams of random weights
+    move under the kernel's rounding alone. Each run records where its
+    streams first differ from the serving phase's."""
+    from runbookai_tpu_torch.models import llama
+
+    kernel = llama.paged_chunk_attention
+    seen = {"calls": 0, "calls_beyond_tol": 0, "max_abs_err": 0.0, "finite": True}
+    serve_plain = [False]
+
+    def checked(q, k, v, tables, ctx, pos, ps):
+        out = kernel(q, k, v, tables, ctx, pos, ps)
+        ref = pa.plain_paged_attention(q, k, v, tables, ctx, pos[:, 0].contiguous(), ps)
+        over, diff = excess(out, ref, "bfloat16")
+        seen["calls"] += 1
+        seen["calls_beyond_tol"] += int(float(over.max()) > 0)
+        seen["max_abs_err"] = max(seen["max_abs_err"], float(diff.max()))
+        seen["finite"] &= bool(out.isfinite().all())
+        return ref if serve_plain[0] else out
+
+    runs = {}
+    llama.paged_chunk_attention = checked
+    try:
+        for mode in ("kernel", "plain"):
+            serve_plain[0] = mode == "plain"
+            res = phase_engine(torch, weights)
+            metrics = res["engine_metrics"]
+            runs[mode] = {"spec_drafted": metrics.get("spec_drafted"),
+                          "spec_accepted": metrics.get("spec_accepted"),
+                          "completion_tokens": res["completion_tokens"],
+                          "same_greedy_tokens_as_serving": same_token_share(
+                              res["greedy_tokens"], served["greedy_tokens"]),
+                          "first_divergence": first_divergence(
+                              res["greedy_tokens"], served["greedy_tokens"])}
+    finally:
+        llama.paged_chunk_attention = kernel
+    if not seen["finite"] or seen["calls_beyond_tol"]:
+        raise AssertionError(f"{weights} serving: {seen['calls_beyond_tol']} of "
+                             f"{seen['calls']} chunk calls beyond TOL of the plain "
+                             f"version (max |err| {seen['max_abs_err']:.3e})")
+    return {"phase": ENGINE_PHASES[weights] + "_witness", "tol": TOL["bfloat16"],
+            **seen, "served": {"spec_drafted": served["engine_metrics"].get("spec_drafted"),
+                               "spec_accepted": served["engine_metrics"].get(
+                                   "spec_accepted")},
+            **runs}
+
+
 async def _serve_and_stop(client, texts):
     try:
         return await serve(client, texts)
     finally:
         await client.shutdown()
+
+
+# Phases 7 to 9 of the tree in the working directory, by its own
+# chip_smoke.py, one JSON line each (--serve-ab); a first serving run of
+# each configuration, not recorded, builds the kernels and warms the
+# process.
+_SERVE_CHILD = """
+import json, sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+for w in ("bfloat16", "int8"):
+    cs.phase_engine(torch, weights=w)
+    e = cs.phase_engine(torch, weights=w)
+    e.pop("greedy_tokens")
+    print(json.dumps(e), flush=True)
+    print(json.dumps(cs.phase_profile(torch, weights=w)), flush=True)
+"""
+
+
+def serve_ab(other: Path) -> int:
+    """Phases 7 to 9 of ``other`` and of this tree, in the order other,
+    this, this, other, each round in a fresh process; a summary line per
+    phase on stdout, every line in ``OUT_DIR/serve_ab.jsonl``."""
+    log = OUT_DIR / "serve_ab.jsonl"
+    log.write_text("")
+    for rnd, (tag, tree) in enumerate((("other", other), ("this", ROOT), ("this", ROOT),
+                                       ("other", other))):
+        proc = subprocess.run([sys.executable, "-c", _SERVE_CHILD], cwd=tree,
+                              capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            print(f"chip_smoke: serving in {tree} failed:\n{proc.stderr[-4000:]}",
+                  file=sys.stderr)
+            return 1
+        for line in proc.stdout.splitlines():
+            if not line.startswith("{"):
+                continue
+            d = {"tree": tag, "round": rnd, **json.loads(line)}
+            with log.open("a") as f:
+                f.write(json.dumps(d) + "\n")
+            keys = ("tokens_per_s", "ttft_ms", "wall_ms", "device_busy_ms", "idle_share",
+                    "by_class_ms")
+            print(json.dumps({k: d[k] for k in ("tree", "round", "phase", *keys) if k in d}),
+                  flush=True)
+    return 0
 
 
 def main() -> int:
@@ -1136,6 +1410,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     OUT_DIR.mkdir(exist_ok=True)
+    if sys.argv[1:2] == ["--serve-ab"]:
+        return serve_ab(Path(sys.argv[2]).resolve())
     _LOG.write_text("")
     emit({"phase": "env", "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0)})
@@ -1158,6 +1434,8 @@ def main() -> int:
     eng8 = phase_engine(torch, weights="int8")
     emit(eng8)
     emit(phase_profile(torch, weights="int8"))
+    emit(phase_witness(torch, pa, "bfloat16", eng))
+    emit(phase_witness(torch, pa, "int8", eng8))
     decp = phase_decode_partial(pa, torch)
     emit(decp)
     chkp = phase_chunk_partial(pa, torch)
@@ -1172,34 +1450,47 @@ def main() -> int:
     emit(phase_profile(torch, weights="kv_split"))
 
     src = "runbookai_tpu_torch/csrc/paged_attention.cu"
+    mma_src = "runbookai_tpu_torch/csrc/chunk_attention.cu"
     pallas = "runbookai_tpu/ops/paged_attention_pallas.py"
+    fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
     for name, res, line, served in (
             ("paged_decode_attention", dec, 188, eng),
-            ("paged_chunk_attention", chk, 397, eng),
-            ("paged_decode_attention_int8", dec8, 240, eng8),
-            # The int8 instantiation of K2's CUDA kernel; the JAX package
-            # serves these calls on its XLA gather path, not a Pallas kernel.
-            ("paged_chunk_attention_int8", chk8, 397, eng8)):
+            ("paged_decode_attention_int8", dec8, 240, eng8)):
         main_path = res["bfloat16"]
-        row = {"name": name, "route": "cuda", "source": src,
-               "replaces": f"{pallas}:{line}",
-               "launches": served["launches"][name],
-               "max_abs_err": max(res["bfloat16"]["max_abs_err"],
-                                  res["float32"]["max_abs_err"]),
-               "ms": main_path["ms"], "plain_ms": main_path["plain_ms"],
-               "bound_ms": main_path["bound_ms"],
-               "bound_by": main_path["bound_by"],
-               "library_ms": main_path["library_ms"]}
-        if "verify" in main_path:  # the chunk kernel: the prefill above, T=8 here
-            row["verify"] = main_path["verify"]
-        kernels.append(row)
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": f"{pallas}:{line}",
+                        "launches": served["launches"][name],
+                        "max_abs_err": max(res["bfloat16"]["max_abs_err"],
+                                           res["float32"]["max_abs_err"]),
+                        **{f: main_path[f] for f in fields}})
+    # K2 for bf16 queries: the tensor-core kernel, over bf16 pools and over
+    # int8 pools (whose T > 1 calls the JAX package serves on its XLA gather
+    # path).
+    for name, res, served in (("paged_chunk_attention", chk, eng),
+                              ("paged_chunk_attention_int8", chk8, eng8)):
+        main_path = res["bfloat16"]
+        kernels.append({"name": name, "route": "cuda", "source": mma_src,
+                        "replaces": f"{pallas}:397", "launches": served["launches"][name],
+                        "max_abs_err": main_path["max_abs_err"],
+                        "f32_cuda_core_max_abs_err": res["float32"]["max_abs_err"],
+                        **{f: main_path[f] for f in fields},
+                        "splits": main_path["splits"],
+                        **{kind: main_path[kind] for kind in MMA_KINDS
+                           if kind in main_path and kind != "prefill"}})
+    # The second pass of a split K2 call, on the verify input's partials.
+    merge = chk["bfloat16"]["merge"]
+    kernels.append({"name": "paged_chunk_merge", "route": "cuda", "source": mma_src,
+                    "replaces": f"{pallas}:397", "launches": eng["launches"]["paged_chunk_merge"],
+                    "launches_int8": eng8["launches"]["paged_chunk_merge"],
+                    "max_abs_err": max(merge["max_abs_err"],
+                                       chk8["bfloat16"]["merge"]["max_abs_err"]),
+                    **{f: merge[f] for f in fields}, "splits": merge["splits"]})
     # The page-split partial kernels per call as the tp=16 path makes them
     # (one model group's heads over one page shard), the mean over both page
     # shards' calls; launches from engine_kv_split, one call per shard and
     # layer in every forward. library_ms: memory-efficient SDPA with its
     # log-sum-exp over the shard's keys gathered beforehand.
-    fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for name, res, replaces in (
             ("paged_decode_attention_partial", decp, f"{pallas}:567"),
             # The JAX package runs T > 1 page-split attention on XLA.

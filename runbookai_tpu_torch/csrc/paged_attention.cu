@@ -5,7 +5,9 @@
 //   rb_paged_decode_attention  <- paged_decode_attention (_decode_kernel), T = 1;
 //                                 over an int8 pool <- _paged_decode_attention_int8
 //                                 (_decode_kernel_int8)
-//   rb_paged_chunk_attention   <- paged_chunk_attention  (_chunk_kernel),  T > 1
+//   rb_paged_chunk_attention   <- paged_chunk_attention  (_chunk_kernel),  T > 1,
+//                                 f32 queries only: bf16 queries take the
+//                                 tensor-core kernel of chunk_attention.cu
 //   rb_paged_decode_attention_partial <- paged_decode_attention_partial
 //                                 (_decode_kernel_partial): KV page-split serving
 //   rb_paged_chunk_attention_partial  <- the XLA _partial_flash of
@@ -16,9 +18,10 @@
 // An int8 value is widened and multiplied by its scale in float32 as its page
 // is loaded into shared memory, as _flash_page_accumulate does; the pool moves
 // one byte per value plus 4 / head_dim bytes of scale. The JAX package sends
-// T > 1 calls over an int8 pool to its XLA gather path; here they take the
-// chunk kernel's int8 instantiation, which agrees with it on every row that a
-// caller keeps (a fully masked row gives zeros instead of the mean of V).
+// T > 1 calls over an int8 pool to its XLA gather path; here those with f32
+// queries take the chunk kernel's int8 instantiation (bf16 queries the
+// tensor-core kernel), which agrees with it on every row that a caller keeps
+// (a fully masked row gives zeros instead of the mean of V).
 //
 // Both compute, for query row r of sequence b, an online (flash) softmax over
 // the first ctx_lens[b] cached tokens, read page by page through
@@ -269,15 +272,21 @@ int dispatch(const Args& a, int B, int threads, int q_dtype, int kv_dtype, cudaS
     return launch<float, float, kCausal, kPartial>(a, B, threads, stream);
   if (q_dtype == kF32 && kv_dtype == kBF16)
     return launch<float, __nv_bfloat16, kCausal, kPartial>(a, B, threads, stream);
-  if (q_dtype == kBF16 && kv_dtype == kF32)
-    return launch<__nv_bfloat16, float, kCausal, kPartial>(a, B, threads, stream);
-  if (q_dtype == kBF16 && kv_dtype == kBF16)
-    return launch<__nv_bfloat16, __nv_bfloat16, kCausal, kPartial>(a, B, threads, stream);
   if constexpr (!kPartial) {  // int8 KV is refused on a page-split mesh
     if (q_dtype == kF32 && kv_dtype == kI8)
       return launch<float, int8_t, kCausal, false>(a, B, threads, stream);
-    if (q_dtype == kBF16 && kv_dtype == kI8)
-      return launch<__nv_bfloat16, int8_t, kCausal, false>(a, B, threads, stream);
+  }
+  // bf16-query chunk calls take chunk_attention.cu's tensor-core kernel, so
+  // the causal non-partial template has no bf16-query instantiation.
+  if constexpr (!kCausal || kPartial) {
+    if (q_dtype == kBF16 && kv_dtype == kF32)
+      return launch<__nv_bfloat16, float, kCausal, kPartial>(a, B, threads, stream);
+    if (q_dtype == kBF16 && kv_dtype == kBF16)
+      return launch<__nv_bfloat16, __nv_bfloat16, kCausal, kPartial>(a, B, threads, stream);
+    if constexpr (!kPartial) {
+      if (q_dtype == kBF16 && kv_dtype == kI8)
+        return launch<__nv_bfloat16, int8_t, kCausal, false>(a, B, threads, stream);
+    }
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

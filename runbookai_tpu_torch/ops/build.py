@@ -40,6 +40,12 @@ SIGNATURES = {
     # q, k, v, tables, ctx_lens, q_start, acc, m, l, B, T, n_q, n_kv, hd, ps,
     # P, tq, shard, pages_local, scale, q_dtype, kv_dtype, stream
     "rb_paged_chunk_attention_partial": [_p] * 9 + [_i] * 10 + [_f, _i, _i, _p],
+    # q, k, v, k_scale, v_scale, tables, ctx_lens, q_start, out, ws_acc, ws_m,
+    # ws_l, B, T, n_q, n_kv, hd, ps, P, rows, splits, cols, scale, kv_dtype,
+    # stream
+    "rb_paged_chunk_attention_mma": [_p] * 12 + [_i] * 10 + [_f, _i, _p],
+    # acc, m, l, out, splits, n_rows, hd, out_dtype, stream
+    "rb_paged_chunk_merge": [_p] * 4 + [_i, ctypes.c_longlong, _i, _i, _p],
     # x, q, s, out, partial, M, K, N, k_split, x_dtype, stream
     "rb_qmm_int8": [_p] * 5 + [_i] * 5 + [_p],
 }

@@ -26,6 +26,7 @@ from dataclasses import dataclass
 import torch
 
 from runbookai_tpu_torch.ops.paged_attention import (
+    merge_partials,
     paged_chunk_attention_partial,
     paged_decode_attention_partial,
 )
@@ -91,21 +92,6 @@ def write_rows(kv_local: torch.Tensor, new_kv: torch.Tensor,
 
 
 # ------------------------------------------------------------- attention
-
-
-def merge_partials(parts, device: torch.device) -> torch.Tensor:
-    """Merge the page shards' flash partials ``(acc, m, l)`` on ``device``,
-    in f32: the max of the m's, each shard's correction ``exp(m - m_max)``,
-    the corrected sums of l and acc, and their quotient with the normaliser
-    clamped at 1e-30. A row that no shard saw a key for stays zeros."""
-    accs = [a.to(device) for a, _, _ in parts]
-    ms = [m.to(device) for _, m, _ in parts]
-    ls = [l.to(device) for _, _, l in parts]
-    m_g = torch.stack(ms).amax(dim=0)
-    corr = [torch.exp(m - m_g) for m in ms]
-    l_g = sum(l * c for l, c in zip(ls, corr))
-    acc_g = sum(a * c[..., None] for a, c in zip(accs, corr))
-    return acc_g / l_g.clamp_min(1e-30)[..., None]
 
 
 def _kv_split(mesh: Mesh, qs, partial) -> list[torch.Tensor]:
