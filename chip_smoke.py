@@ -9,7 +9,11 @@ Phases (any failure exits non-zero; one JSON object per phase on stdout):
    sm_90a, one nvcc per source (ptxas report in ``OUT_DIR/ptxas.txt``);
 2. hold the decode kernel against its plain version at the serving shapes
    (B=8, 32 query / 8 kv heads, head_dim 128, 16-token pages, 513-wide
-   tables, ctx 0..8191) for bf16 and f32 pools, and time it;
+   tables, ctx 0..8191) for bf16 and f32 pools, and time it (CUDA events,
+   profiler device time, host time a call): bf16 queries take the
+   tensor-core kernel (``decode_attention.cu``, with its split count), also
+   on the served contexts (at most 950 tokens); f32 queries the CUDA-core
+   kernel;
 3. hold the chunk kernels against their plain version on a 4 x 512 prefill
    at offsets 0 and 512, a T=8 verify from ctx-1, and a chunk with a pad
    tail: bf16 queries take the tensor-core kernel (``chunk_attention.cu``),
@@ -37,25 +41,31 @@ Phases (any failure exits non-zero; one JSON object per phase on stdout):
    just before and read just after; both must rise;
 8. serve the same requests once more under torch.profiler: device time by
    kernel class and the device's idle share; it fails unless the bf16
-   chunk calls ran the tensor-core kernel and never the CUDA-core kernel's
-   bf16-query instantiation. Both serving phases fail if the engine loop
-   crashed or a request was aborted, and the first if no split chunk call
-   was merged;
+   chunk and decode calls ran the tensor-core kernels and never a removed
+   bf16-query instantiation of the CUDA-core kernel. Both serving phases
+   fail if the engine loop crashed or a request was aborted, and the first
+   if no split chunk call was merged;
 9. phases 7 and 8 again with int8 weights and an int8 KV pool
    (``TorchCudaClient.build(dtype="int8", kv_cache_dtype="int8")``): the
    int8 kernels' counts must rise and the bf16 attention counts stay 0;
    then, for both configurations, the requests served twice more with every
-   chunk call of the forward held against its plain version on the same
-   inputs (fails beyond TOL), once serving the kernel's result and once the
-   plain version's, and where their greedy streams part from phase 7's;
+   chunk call of the forward (and, in bf16, every decode call) held against
+   its plain version on the same inputs (fails beyond TOL), once serving the
+   kernel's result and once the plain version's, and where their greedy
+   streams part from phase 7's;
 10. the page-split partial kernels (K4 for decode, the chunk partial for
    T > 1) on phase 2's and phase 3's inputs cut into two page shards of
-   1024 pages, at the shape of one call of phase 12's path (one model
-   group's 4 query heads over its kv head) and over all heads: each
-   shard's (acc, m, l) against its plain version, the merge of both shards
-   against K1/K2 on the unsplit pool, the rejection of a result with the
-   last page dropped, and per-call times beside the memory-efficient SDPA
-   call that returns the same partial normalised (out, log-sum-exp);
+   1024 pages (the chunk partial on the prefill, the verify, and the verify
+   with each sequence's pages on one shard), at the shape of one call of
+   phase 12's path (one model group's 4 query heads over its kv head) and
+   over all heads: each shard's (acc, m, l) against its plain version, the
+   same result with the other shard's pages set to NaN (no foreign page is
+   loaded), the merge of both shards against K1/K2 on the unsplit pool,
+   the rejection of a result with the last page dropped, and per-call
+   times (events, device, host) beside the memory-efficient SDPA call that
+   returns the same partial normalised (out, log-sum-exp); bf16 chunk
+   partials take the tensor-core kernel (``chunk_attention.cu``), with
+   their split count;
 11. the tensor-parallel forward of llama3-8b-instruct at full width, depth
    cut to 2 layers, f32 weights and pool, on a model=8 x seq=2 and a
    model=8 x seq=1 mesh of 16 and 8 shards on the one card, against the
@@ -64,7 +74,10 @@ Phases (any failure exits non-zero; one JSON object per phase on stdout):
    ``TorchCudaClient.build(tp=16, devices=["cuda:0"] * 16)`` (model=8 x
    seq=2) over a 256-page pool: pages of both page shards must be
    allocated, the partial kernels' counts must rise and K1's and K2's
-   stay 0; then once more under torch.profiler, as phase 8.
+   stay 0; then once more under torch.profiler, as phase 8 (it fails
+   unless the chunk partials ran the tensor-core kernel); then twice more
+   with every chunk-partial call held against its plain version, as the
+   witness of phase 9.
 
 Then it prints the kernels' line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -305,56 +318,77 @@ def phase_build() -> dict:
 
 def decode_case(pa, torch, q, k, v, tables, ctx, name: str) -> dict:
     """Decode kernel against its plain version on one pool (a tensor or an
-    int8 tuple), the dropped-last-page check, and its times and bound."""
+    int8 tuple), the dropped-last-page check, and its times (CUDA events
+    over back-to-back calls, profiler device time, host time a call), its
+    route and split count, and its bound."""
     import torch.nn.functional as F
 
     dev = q.device
-    out = pa.paged_decode_attention(q, k, v, tables, ctx, PS)
+    ctx_l = ctx.tolist()
+    pool = k[0] if isinstance(k, tuple) else k
+
+    def call():
+        return pa.paged_decode_attention(q, k, v, tables, ctx, PS)
+
+    out = call()
     ref = pa.plain_paged_attention(q[:, None], k, v, tables, ctx, None, PS)[:, 0]
     torch.cuda.synchronize()
     err = compare(out, ref, name, f"decode {name}")
-    if bool(out[0].abs().max() != 0):
+    if any(bool(out[i].abs().max() != 0) for i, c in enumerate(ctx_l) if c == 0):
         raise AssertionError("decode: a ctx-0 row must be zeros")
     wrong = drop_last_page(pa, q[:, None], k, v, tables, ctx, None,
                            ref[:, None], name)
-    ms = time_ms(lambda: pa.paged_decode_attention(q, k, v, tables, ctx, PS))
+    ms = time_ms(call)
     plain_ms = time_ms(lambda: pa.plain_paged_attention(
         q[:, None], k, v, tables, ctx, None, PS), iters=3, warmup=1)
-    q4, kk, vv = gather_for_library(q[:, None], k, v, tables, DECODE_CTX,
-                                    max(DECODE_CTX))
+    q4, kk, vv = gather_for_library(q[:, None], k, v, tables, ctx_l, max(ctx_l))
     mask = (torch.arange(kk.shape[2], device=dev)[None, :] < ctx[:, None].long()
             )[:, None, None, :]
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(
         q4, kk, vv, attn_mask=mask), iters=5, warmup=1)
     del kk, vv
-    tokens = sum(DECODE_CTX)
+    tokens = sum(ctx_l)
     n_bytes = (2 * q.numel() * q.element_size() + tokens * 2 * token_bytes(k)
-               + sum(-(-c // PS) for c in DECODE_CTX) * 4 + B * 4)
+               + sum(-(-c // PS) for c in ctx_l) * 4 + len(ctx_l) * 4)
     bound_ms, bound_by = bound(n_bytes, 4.0 * tokens * N_Q * HD, name)
-    return {"max_abs_err": err, "tol": TOL[name], "ms": ms,
+    route = pa.decode_route(q.dtype, HD, pool.dtype)
+    plan = pa.decode_plan(q.shape[0], N_Q, N_KV, HD, tables.shape[1])
+    return {"route": route, "splits": plan.splits if route == "mma" else 1,
+            "max_abs_err": err, "tol": TOL[name], "ms": ms,
+            "device_ms": device_ms(call, iters=20), "host_ms": host_ms(call),
             "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_ms": bound_ms, "bound_by": bound_by, "ctx_lens": ctx_l,
             "drop_last_page": wrong}
 
 
 def phase_decode(pa, torch, int8: bool = False) -> dict:
     """K1 over bf16 and f32 pools or, with ``int8``, K3 over int8 pools
-    quantized from them, with queries of the same two types."""
+    quantized from them, with queries of the same two types, on the decode
+    input (ctx 0..8191); K1 with bf16 queries (the tensor-core kernel) also
+    on the served contexts (at most 950 tokens)."""
     from runbookai_tpu_torch.ops.attention import quantize_kv
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(3 if int8 else 1)
-    ctx = torch.tensor(DECODE_CTX, dtype=torch.int32, device=dev)
     result: dict = {"phase": "decode_int8_kernel" if int8 else "decode_kernel",
                     "ctx_lens": DECODE_CTX}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
-        k, v, tables = make_pool(gen, dtype, DECODE_CTX, dev)
-        if int8:
-            k, v = quantize_kv(k), quantize_kv(v)
-        q = torch.randn((B, N_Q, HD), generator=gen, device=dev).to(dtype)
-        result[name] = decode_case(pa, torch, q, k, v, tables, ctx, name)
-        del k, v
+        inputs = [("decode", DECODE_CTX)]
+        if dtype == torch.bfloat16 and not int8:
+            inputs.append(("served", SERVED_CTX))
+        for kind, ctx_l in inputs:
+            ctx = torch.tensor(ctx_l, dtype=torch.int32, device=dev)
+            k, v, tables = make_pool(gen, dtype, ctx_l, dev)
+            if int8:
+                k, v = quantize_kv(k), quantize_kv(v)
+            q = torch.randn((B, N_Q, HD), generator=gen, device=dev).to(dtype)
+            case = decode_case(pa, torch, q, k, v, tables, ctx, name)
+            if kind == "decode":
+                result[name] = case
+            else:
+                result[name][kind] = case
+            del k, v
     return result
 
 
@@ -646,12 +680,29 @@ def shard_case(pa, torch, q, k, v, tables, ctx, q_pos, name: str,
                                                      PS, s, pages_local)
         return (acc[:, 0], m[:, 0], l[:, 0]) if decode else (acc, m, l)
 
+    def guarded(s):
+        """The kernel on shard s's slice set between pages of NaN that
+        stand for every other shard's pages (local ids below 0 and past
+        pages_local): a foreign page loaded would turn the result NaN."""
+        slices = []
+        for x in (ks[s], vs[s]):
+            nan = torch.full_like(x, float("nan"))
+            slices.append(torch.cat([nan, x, nan])[x.shape[0]:2 * x.shape[0]])
+        if decode:
+            return pa.paged_decode_attention_partial(q, *slices, tables, ctx, s, PS,
+                                                     pages_local)
+        return pa.paged_chunk_attention_partial(q, *slices, tables, ctx, q_pos, s, PS,
+                                                pages_local)
+
     parts, errs = [], []
     for s in range(PG):
         got, want = kernel(s), plain(s)
         torch.cuda.synchronize()
         errs.append(max(compare(g, w, name, f"{what} {name} shard {s} {field}")
                         for g, w, field in zip(got, want, ("acc", "m", "l"))))
+        if not all(torch.equal(g, x) for g, x in zip(got, guarded(s))):
+            raise AssertionError(f"{what} {name} shard {s}: the result moved with the "
+                                 f"other shards' pages set to NaN")
         parts.append(got)
     merged = merge_partials(parts, q.device).to(q.dtype)
     if decode:
@@ -674,6 +725,8 @@ def shard_case(pa, torch, q, k, v, tables, ctx, q_pos, name: str,
                                               q_start, s, pages_local)
         acc, m, l = parts[s]
         shards.append({"ms": time_ms(lambda: kernel(s)),
+                       "device_ms": device_ms(lambda: kernel(s), iters=10),
+                       "host_ms": host_ms(lambda: kernel(s)),
                        "plain_ms": time_ms(lambda: plain(s), iters=3, warmup=1),
                        "library_ms": time_ms(lib_call, iters=5, warmup=1),
                        "library_max_abs_err": lib_check(
@@ -683,9 +736,15 @@ def shard_case(pa, torch, q, k, v, tables, ctx, q_pos, name: str,
                        "keys": keys, "max_abs_err": errs[s]})
         del lib_call, lib_check
     mean = {f: sum(x[f] for x in shards) / PG
-            for f in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    return {"max_abs_err": max(errs), "merge_max_abs_err": merge_err, "tol": TOL[name],
+            for f in ("ms", "device_ms", "host_ms", "plain_ms", "library_ms", "bound_ms")}
+    b, n_q = q.shape[0], q.shape[-2]
+    t, n_kv = q4.shape[1], ks[0].shape[1]
+    route = "cuda_core" if decode else pa.decode_route(q.dtype, HD, k.dtype)
+    splits = pa.chunk_plan(b, t, n_q, n_kv, HD, tables.shape[1]).splits
+    return {"route": route, "splits": splits if route == "mma" else 1,
+            "max_abs_err": max(errs), "merge_max_abs_err": merge_err, "tol": TOL[name],
             "q": list(q.shape), "kv_local": list(ks[0].shape),
+            "foreign_pages_loaded": False,
             **mean, "bound_by": ("bytes" if all(x["bound_by"] == "bytes" for x in shards)
                                  else "operations"),
             "shards": shards, "drop_last_page": wrong}
@@ -740,21 +799,46 @@ def phase_decode_partial(pa, torch) -> dict:
     return result
 
 
+def one_shard_tables(tables, ctx):
+    """The tables with sequence i's live pages drawn in ascending order from
+    page shard i % PG alone, as the engine's allocator hands out long runs
+    (entries past ctx unchanged)."""
+    import torch
+
+    tables = tables.clone()
+    local = NUM_PAGES // PG
+    nxt = [max(1, s * local) for s in range(PG)]  # page 0 is the null page
+    for i, c in enumerate(ctx.tolist()):
+        need, s = -(-c // PS), i % PG
+        if nxt[s] + need > (s + 1) * local:
+            raise AssertionError(f"page shard {s} cannot hold sequence {i}")
+        tables[i, :need] = torch.arange(nxt[s], nxt[s] + need, dtype=torch.int32)
+        nxt[s] += need
+    return tables
+
+
 def phase_chunk_partial(pa, torch) -> dict:
     """The chunk partial on phase 3's 4 x 512 prefill and T=8 verify inputs,
-    cut into PG page shards, at the served shape and over all heads."""
+    cut into PG page shards (their pages drawn over the whole pool, so
+    ownership interleaves page by page), and on the verify input with each
+    sequence's pages on one shard; at the served shape and over all heads.
+    bf16 queries take the tensor-core kernel, f32 queries the CUDA-core
+    kernel."""
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(8)
     result: dict = {"phase": "chunk_partial_kernel", "page_shards": PG}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
         cases = {}
-        for kind in ("prefill", "verify"):
-            q, k, v, tables, ctx, pos, _ = chunk_inputs(torch, dev, gen, dtype, kind)
+        for kind in ("prefill", "verify", "verify_one_shard"):
+            q, k, v, tables, ctx, pos, _ = chunk_inputs(
+                torch, dev, gen, dtype, kind.removesuffix("_one_shard"))
+            if kind.endswith("_one_shard"):
+                tables = one_shard_tables(tables, ctx)
             cases[kind] = partial_cases(pa, torch, q, k, v, tables, ctx, pos, name)
             del q, k, v
-        result[name] = {**cases["prefill"], "verify": cases["verify"],
-                        "max_abs_err": max(c["max_abs_err"] for c in cases.values())}
+        worst = max(c["max_abs_err"] for c in cases.values())
+        result[name] = {**cases.pop("prefill"), **cases, "max_abs_err": worst}
     return result
 
 
@@ -1209,11 +1293,22 @@ def template_args(name: str, kernel: str):
     return name.split(kernel + "<", 1)[1].split(">", 1)[0].split(", ")
 
 
-def old_bf16_chunk(name: str) -> bool:
-    """The CUDA-core kernel's bf16-query causal non-partial instantiation,
-    which bf16 chunk calls no longer reach."""
+# The CUDA-core kernel's instantiations for bf16 queries that the
+# tensor-core kernels replaced, by (kCausal, kPartial): chunk calls over
+# every pool type, decode calls and chunk partials over bf16 pools. No call
+# reaches them (K3 and K4 stay).
+REMOVED_BF16 = {("true", "false"): "chunk", ("false", "false"): "decode",
+                ("true", "true"): "chunk_partial"}
+
+
+def removed_bf16(name: str):
+    """Which removed instantiation a profiled kernel is ("chunk", "decode",
+    "chunk_partial"), or None."""
     args = template_args(name, "paged_attention_kernel")  # <TQ, TKV, kCausal, kPartial>
-    return bool(args) and args[0] == "__nv_bfloat16" and args[2:4] == ["true", "false"]
+    if not args or args[0] != "__nv_bfloat16":
+        return None
+    kind = REMOVED_BF16.get(tuple(args[2:4]))
+    return kind if kind == "chunk" or args[1] == "__nv_bfloat16" else None
 
 
 def kernel_class(name: str, int8_pools: bool = False) -> str:
@@ -1227,6 +1322,11 @@ def kernel_class(name: str, int8_pools: bool = False) -> str:
     args = template_args(name, "chunk_attention_mma_kernel")  # <TKV, HD, WARPS>
     if args:
         return "chunk_attention" + ("_int8" if args[0] in INT8_ARGS else "")
+    if "chunk_partial_mma_kernel<" in name:
+        return "chunk_attention_partial"
+    args = template_args(name, "decode_attention_mma_kernel")  # <TKV, HD>
+    if args:
+        return "decode_attention" + ("_int8" if args[0] in INT8_ARGS else "")
     if "chunk_merge_kernel<" in name:
         return "chunk_attention" + ("_int8" if int8_pools else "")
     if "qmm" in name:  # before the matmul test: the int8 weight kernel
@@ -1260,11 +1360,23 @@ def phase_profile(torch, weights: str = "bfloat16") -> dict:
         acc[0] += ms
         acc[1] += 1
         by_name[name] = by_name.get(name, 0.0) + ms
-    if weights != "kv_split":  # the chunk calls' route
-        old = [n for n in by_name if old_bf16_chunk(n)]
-        if old or not any("chunk_attention_mma_kernel<" in n for n in by_name):
-            raise AssertionError(f"{weights} profile: bf16 chunk calls missed the "
-                                 f"tensor-core kernel or ran {old[:1]}")
+    # The routes: bf16 chunk calls (and, over a bf16 pool, decode calls) on
+    # the tensor-core kernels; page-split chunk partials too; no call on a
+    # removed CUDA-core instantiation.
+    old = [n for n in by_name if removed_bf16(n)]
+    if weights == "kv_split":
+        want = [("chunk_partial_mma_kernel<", "chunk_attention_partial")]
+    else:
+        want = [("chunk_attention_mma_kernel<", "chunk_attention" + (
+            "_int8" if weights == "int8" else ""))]
+        if weights == "bfloat16":
+            want.append(("decode_attention_mma_kernel<", "decode_attention"))
+    missed = [cls for pat, cls in want
+              if not any(pat in n and kernel_class(n, weights == "int8") == cls
+                         for n in by_name)]
+    if old or missed:
+        raise AssertionError(f"{weights} profile: no tensor-core kernel for {missed}, "
+                             f"or a removed instantiation ran: {old[:1]}")
     busy = sum(v[0] for v in classes.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     return {"phase": ENGINE_PHASES[weights] + "_profile",
@@ -1289,32 +1401,60 @@ def first_divergence(a: list[list[int]], b: list[list[int]]):
 
 
 def phase_witness(torch, pa, weights: str, served: dict) -> dict:
-    """The serving phase's requests twice more, with every chunk attention
-    call of the forward made twice: the kernel, and its plain version on the
-    same inputs (f32 throughout, rounded once), each call's result held
-    against the other at TOL (fails beyond it). The first run serves the
-    kernel's result, as the serving phase did; the second serves the plain
-    version's, which shows how far the greedy streams of random weights
-    move under the kernel's rounding alone. Each run records where its
-    streams first differ from the serving phase's."""
+    """The serving phase's requests twice more, with every call of the
+    forward to the kernels under test made twice: the kernel, and its plain
+    version on the same inputs (f32 throughout, rounded once), each call's
+    result held against the other at TOL (fails beyond it). The calls: chunk
+    attention, and in bf16 decode attention (``models.llama``); on the
+    page-split mesh the chunk partial (``parallel.kv_split``), its (acc, m,
+    l) each. The first run serves the kernel's result, as the serving phase
+    did; the second serves the plain version's, which shows how far the
+    greedy streams of random weights move under the kernel's rounding
+    alone. Each run records where its streams first differ from the
+    serving phase's."""
     from runbookai_tpu_torch.models import llama
+    from runbookai_tpu_torch.parallel import kv_split
 
-    kernel = llama.paged_chunk_attention
-    seen = {"calls": 0, "calls_beyond_tol": 0, "max_abs_err": 0.0, "finite": True}
+    def plain_chunk(q, k, v, tables, ctx, pos, ps):
+        return pa.plain_paged_attention(q, k, v, tables, ctx, pos[:, 0].contiguous(), ps)
+
+    def plain_decode(q, k, v, tables, ctx, ps):
+        return pa.plain_paged_attention(q[:, None], k, v, tables, ctx, None, ps)[:, 0]
+
+    def plain_partial(q, k, v, tables, ctx, pos, shard, ps, pages_local):
+        return pa.plain_paged_attention_partial(q, k, v, tables, ctx, pos[:, 0].contiguous(),
+                                                ps, shard, pages_local)
+
+    if weights == "kv_split":
+        targets = [(kv_split, "paged_chunk_attention_partial", plain_partial)]
+    else:
+        targets = [(llama, "paged_chunk_attention", plain_chunk)]
+        if weights == "bfloat16":
+            targets.append((llama, "paged_decode_attention", plain_decode))
+    seen = {attr: {"calls": 0, "calls_beyond_tol": 0, "max_abs_err": 0.0, "finite": True}
+            for _, attr, _ in targets}
     serve_plain = [False]
 
-    def checked(q, k, v, tables, ctx, pos, ps):
-        out = kernel(q, k, v, tables, ctx, pos, ps)
-        ref = pa.plain_paged_attention(q, k, v, tables, ctx, pos[:, 0].contiguous(), ps)
-        over, diff = excess(out, ref, "bfloat16")
-        seen["calls"] += 1
-        seen["calls_beyond_tol"] += int(float(over.max()) > 0)
-        seen["max_abs_err"] = max(seen["max_abs_err"], float(diff.max()))
-        seen["finite"] &= bool(out.isfinite().all())
-        return ref if serve_plain[0] else out
+    def checked(attr, kernel, plain):
+        def call(*args):
+            out, ref = kernel(*args), plain(*args)
+            outs, refs = (out, ref) if isinstance(out, tuple) else ((out,), (ref,))
+            rec = seen[attr]
+            rec["calls"] += 1
+            beyond = False
+            for o, r in zip(outs, refs):
+                over, diff = excess(o, r, "bfloat16")
+                beyond |= float(over.max()) > 0
+                rec["max_abs_err"] = max(rec["max_abs_err"], float(diff.max()))
+                rec["finite"] &= bool(o.isfinite().all())
+            rec["calls_beyond_tol"] += int(beyond)
+            return ref if serve_plain[0] else out
+        return call
 
     runs = {}
-    llama.paged_chunk_attention = checked
+    kernels = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in targets]
+    for (mod, attr, kernel), (_, _, plain) in zip(kernels, targets):
+        setattr(mod, attr, checked(attr, kernel, plain))
     try:
         for mode in ("kernel", "plain"):
             serve_plain[0] = mode == "plain"
@@ -1328,11 +1468,14 @@ def phase_witness(torch, pa, weights: str, served: dict) -> dict:
                           "first_divergence": first_divergence(
                               res["greedy_tokens"], served["greedy_tokens"])}
     finally:
-        llama.paged_chunk_attention = kernel
-    if not seen["finite"] or seen["calls_beyond_tol"]:
-        raise AssertionError(f"{weights} serving: {seen['calls_beyond_tol']} of "
-                             f"{seen['calls']} chunk calls beyond TOL of the plain "
-                             f"version (max |err| {seen['max_abs_err']:.3e})")
+        for mod, attr, kernel in kernels:
+            setattr(mod, attr, kernel)
+    for attr, rec in seen.items():
+        if not rec["finite"] or rec["calls_beyond_tol"] or not rec["calls"]:
+            raise AssertionError(f"{weights} serving: {rec['calls_beyond_tol']} of "
+                                 f"{rec['calls']} {attr} calls beyond TOL of the plain "
+                                 f"version (max |err| {rec['max_abs_err']:.3e}), or "
+                                 f"non-finite")
     return {"phase": ENGINE_PHASES[weights] + "_witness", "tol": TOL["bfloat16"],
             **seen, "served": {"spec_drafted": served["engine_metrics"].get("spec_drafted"),
                                "spec_accepted": served["engine_metrics"].get(
@@ -1448,22 +1591,34 @@ def main() -> int:
         split["greedy_tokens"], eng["greedy_tokens"])
     emit(split)
     emit(phase_profile(torch, weights="kv_split"))
+    emit(phase_witness(torch, pa, "kv_split", split))
 
     src = "runbookai_tpu_torch/csrc/paged_attention.cu"
     mma_src = "runbookai_tpu_torch/csrc/chunk_attention.cu"
+    dec_src = "runbookai_tpu_torch/csrc/decode_attention.cu"
     pallas = "runbookai_tpu/ops/paged_attention_pallas.py"
     fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    timing = ("device_ms", "host_ms", "splits")
     kernels = []
-    for name, res, line, served in (
-            ("paged_decode_attention", dec, 188, eng),
-            ("paged_decode_attention_int8", dec8, 240, eng8)):
-        main_path = res["bfloat16"]
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": f"{pallas}:{line}",
-                        "launches": served["launches"][name],
-                        "max_abs_err": max(res["bfloat16"]["max_abs_err"],
-                                           res["float32"]["max_abs_err"]),
-                        **{f: main_path[f] for f in fields}})
+    # K1 for bf16 queries over a bf16 pool: the tensor-core kernel, on the
+    # decode input and (under "served") the served contexts; f32 queries
+    # take the CUDA-core kernel.
+    main_path = dec["bfloat16"]
+    kernels.append({"name": "paged_decode_attention", "route": "cuda", "source": dec_src,
+                    "replaces": f"{pallas}:188",
+                    "launches": eng["launches"]["paged_decode_attention"],
+                    "max_abs_err": max(main_path["max_abs_err"],
+                                       main_path["served"]["max_abs_err"]),
+                    "f32_cuda_core_max_abs_err": dec["float32"]["max_abs_err"],
+                    **{f: main_path[f] for f in fields + timing},
+                    "served": {f: main_path["served"][f] for f in fields + timing}})
+    main_path = dec8["bfloat16"]
+    kernels.append({"name": "paged_decode_attention_int8", "route": "cuda", "source": src,
+                    "replaces": f"{pallas}:240",
+                    "launches": eng8["launches"]["paged_decode_attention_int8"],
+                    "max_abs_err": max(main_path["max_abs_err"],
+                                       dec8["float32"]["max_abs_err"]),
+                    **{f: main_path[f] for f in fields + timing}})
     # K2 for bf16 queries: the tensor-core kernel, over bf16 pools and over
     # int8 pools (whose T > 1 calls the JAX package serves on its XLA gather
     # path).
@@ -1491,22 +1646,27 @@ def main() -> int:
     # shards' calls; launches from engine_kv_split, one call per shard and
     # layer in every forward. library_ms: memory-efficient SDPA with its
     # log-sum-exp over the shard's keys gathered beforehand.
-    for name, res, replaces in (
-            ("paged_decode_attention_partial", decp, f"{pallas}:567"),
+    # bf16 chunk partials run on chunk_attention.cu's tensor-core kernel
+    # (f32 queries on the CUDA-core kernel), K4 on the CUDA-core kernel.
+    part_fields = fields + ("device_ms", "host_ms")
+    for name, res, replaces, source in (
+            ("paged_decode_attention_partial", decp, f"{pallas}:567", src),
             # The JAX package runs T > 1 page-split attention on XLA.
             ("paged_chunk_attention_partial", chkp,
-             "runbookai_tpu/parallel/kv_split.py:104")):
+             "runbookai_tpu/parallel/kv_split.py:104", mma_src)):
         main_path = res["bfloat16"]["served"]
-        row = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+        row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                "launches": split["launches"][name],
                "calls_per_forward": split["calls_per_forward"],
-               "max_abs_err": max(res["bfloat16"]["max_abs_err"],
-                                  res["float32"]["max_abs_err"]),
-               **{f: main_path[f] for f in fields}, "q": main_path["q"],
-               "kv_local": main_path["kv_local"]}
-        if "verify" in res["bfloat16"]:
-            verify = res["bfloat16"]["verify"]["served"]
-            row["verify"] = {**{f: verify[f] for f in fields}, "q": verify["q"]}
+               "max_abs_err": res["bfloat16"]["max_abs_err"],
+               "f32_cuda_core_max_abs_err": res["float32"]["max_abs_err"],
+               **{f: main_path[f] for f in part_fields}, "splits": main_path["splits"],
+               "q": main_path["q"], "kv_local": main_path["kv_local"]}
+        for kind in ("verify", "verify_one_shard"):
+            if kind in res["bfloat16"]:
+                case = res["bfloat16"][kind]["served"]
+                row[kind] = {**{f: case[f] for f in part_fields}, "splits": case["splits"],
+                             "q": case["q"]}
         kernels.append(row)
     # K5 per decode layer: the sum over its seven products at M=8 (and, under
     # "verify", at M=64), each timed on rotating layer slices.

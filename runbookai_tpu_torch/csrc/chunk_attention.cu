@@ -5,8 +5,10 @@
 // runbookai_tpu/ops/paged_attention_pallas.py for bf16 queries over bf16 pools
 // and over int8 pools (one f32 absmax scale per (token, kv head),
 // runbookai_tpu_torch/ops/attention.py quantize_kv), which the JAX package
-// serves on its XLA gather path. f32 queries take the CUDA-core kernel of
-// paged_attention.cu.
+// serves on its XLA gather path; and, in chunk_partial_mma_kernel (the
+// page-split chunk partial), the XLA _partial_flash of
+// runbookai_tpu/parallel/kv_split.py for bf16 queries over a bf16 pool slice.
+// f32 queries take the CUDA-core kernels of paged_attention.cu.
 //
 // What it computes, for query row (token t, head h) of sequence b: an online
 // (flash) softmax in f32 over the first ctx_lens[b] cached tokens, read
@@ -62,6 +64,27 @@
 //   same inputs give the same bits run to run) and writes q's dtype; its
 //   plain version is merge_partials followed by the cast.
 //
+// The page-split chunk partial (chunk_partial_mma_kernel) runs the same
+// rows, tiles and tensor-core steps over one page shard's slice of the
+// pool: tables hold global page ids, page g lives on shard g / pages_local
+// at local page g - shard * pages_local. Its prologue lists,
+// in shared memory and in table order, the columns of the block's split that
+// lie below its key bound and whose page this shard owns (a ballot and a
+// prefix count per 32 columns); its 64-key tiles are then four owned pages
+// each, whatever the pages between them, and every key carries its own
+// position (column * ps + offset) into the ctx and causal masks. A foreign
+// page is never read: where the allocator hands a sequence long runs of one
+// shard's pages (engine/kv_cache.py), a shard walks only its runs, and where
+// ownership interleaves page by page (random tables), it walks half the
+// columns. It writes the un-normalised (acc, m, l) in f32, m in natural-log
+// units, a row with no owned key (0, -1e30, 0): unsplit straight to the
+// output; split to a workspace, and the last split of a row tile to finish
+// (an int32 counter per tile, after a __threadfence) combines the splits in
+// split order into the output and resets its counter (plain version:
+// combine_partials). One launch a call: a second launch and its workspace
+// cost more host time than the kernel takes (PERF.md). The bound is
+// the owned pages' bytes.
+//
 // mma.sync and cp.async rather than wgmma and TMA: a 64-row wgmma tile would
 // waste half of the verify's 32-row tiles, and cp.async gathers 16-token
 // pages row by row without a tensor map per pool. wgmma/TMA for the prefill
@@ -71,20 +94,13 @@
 // -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3, one shared library,
 // ctypes).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include <climits>
 
-#include <cstdint>
-#include <type_traits>
+#include "attention_common.cuh"
 
 namespace {
 
-constexpr int kKeys = 64;   // keys per K/V tile
 constexpr int kStages = 3;  // K/V tiles in the ring: two load while one computes
-constexpr float kNegInf = -1e30f;
-constexpr float kLn2 = 0.6931471805599453f;
-
-enum DType { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
 struct ChunkArgs {
   const __nv_bfloat16* q;  // [B, T, n_q, HD]
@@ -102,72 +118,6 @@ struct ChunkArgs {
   int T, n_q, n_kv, ps, P, cols, splits;
   float scale_log2;        // softmax scale times log2(e)
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool live) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(live ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool live) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(live ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N of this thread's copy groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// d[0..3] += a (m16 x k16, row) * b (k16 x n8, col); bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// x = hi + lo to about 2^-16 of x, both bf16; packs (x0, x1) of each.
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  hi = *reinterpret_cast<uint32_t*>(&h);
-  lo = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
-}
-
-// Element offset of 16-byte chunk `chunk` of row `row` in a swizzled bf16 tile
-// of HD columns: chunks are XORed with the row's low 3 bits, so the 8 rows of
-// an ldmatrix 8x8 matrix fall in 8 different bank groups.
-template <int HD>
-__device__ __forceinline__ int swz(int row, int chunk) {
-  return row * HD + ((chunk ^ (row & 7)) << 3);
-}
 
 template <typename TKV, int HD, int WARPS>
 struct Smem {
@@ -215,25 +165,6 @@ __device__ __forceinline__ void load_tile(const ChunkArgs& a, const int* table, 
       cp_async4(scales + key, a.k_scale + idx, live);
       cp_async4(scales + kKeys + key, a.v_scale + idx, live);
     }
-  }
-}
-
-// Widen a landed int8 K/V stage to the swizzled bf16 tiles (exact: |v| <= 127).
-template <int HD, int THREADS>
-__device__ __forceinline__ void widen_tile(const int8_t* stage, __nv_bfloat16* wide) {
-  constexpr int kChunks = HD / 16;  // 16 int8 values a chunk
-  for (int i = threadIdx.x; i < 2 * kKeys * kChunks; i += THREADS) {
-    const int tile = i / (kKeys * kChunks), j = i % (kKeys * kChunks);
-    const int key = j / kChunks, ch = j % kChunks;
-    const int4 raw = *reinterpret_cast<const int4*>(stage + tile * kKeys * HD + key * HD + ch * 16);
-    const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
-    uint32_t w[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) w[e] = pack_bf16(static_cast<float>(b[2 * e]),
-                                                 static_cast<float>(b[2 * e + 1]));
-    __nv_bfloat16* dst = wide + tile * kKeys * HD;
-    *reinterpret_cast<int4*>(dst + swz<HD>(key, 2 * ch)) = make_int4(w[0], w[1], w[2], w[3]);
-    *reinterpret_cast<int4*>(dst + swz<HD>(key, 2 * ch + 1)) = make_int4(w[4], w[5], w[6], w[7]);
   }
 }
 
@@ -450,6 +381,329 @@ __global__ void __launch_bounds__(WARPS * 32)
   }
 }
 
+struct PartialArgs {
+  const __nv_bfloat16* q;  // [B, T, n_q, HD]
+  const void* k;           // [pages_local * ps, n_kv, HD] bf16: this shard's slice
+  const void* v;           // same
+  const int* tables;       // [B, P] global page ids
+  const int* ctx_lens;     // [B]
+  const int* q_pos;        // [B, T], contiguous ascending per row: row b starts at q_pos[b * T]
+  float* acc;              // [B, T, n_q, HD] f32, un-normalised
+  float* m;                // [B, T, n_q], natural-log units
+  float* l;                // same
+  float* ws;               // several splits: acc [S, B, T, n_q, HD], then m and l [S, B, T, n_q]
+  int* counters;           // several splits: [row tiles, B * n_kv], 0 between launches
+  int T, n_q, n_kv, ps, P, cols, splits, shard, pages_local;
+  float scale_log2;        // softmax scale times log2(e)
+};
+
+// Shared memory of the chunk partial: K2's, plus each stage's key positions,
+// the owned-column counts of the warps and the owned columns with their
+// local pages (up to `cols` each).
+template <int HD, int WARPS>
+struct PartialSmem {
+  using Base = Smem<__nv_bfloat16, HD, WARPS>;
+  static constexpr int kPos = kStages * kKeys * 4;
+  static constexpr int kFixed = Base::kBytes + kPos + WARPS * 4;
+  static int bytes(int cols) { return kFixed + 2 * cols * 4; }
+};
+
+// Pool rows of a tile's keys j0 + key of the owned pages' list.
+struct OwnedKeys {
+  const int* own_page;
+  int j0, n_keys, ps;
+  __device__ __forceinline__ long long operator()(int key) const {
+    const int j = j0 + key;
+    return j < n_keys ? static_cast<long long>(own_page[j / ps]) * ps + j % ps : -1;
+  }
+};
+
+// The page-split chunk partial: chunk_attention_mma_kernel's rows, tiles,
+// tensor-core steps and softmax over page shard a.shard's owned pages, each
+// key at its own position; (acc, m, l) out, the splits merged in the launch.
+// A kernel of its own: the partial's prologue, key source and epilogue folded
+// into K2's body as a template flag slowed K2 on the card (PERF.md).
+template <int HD, int WARPS>
+__global__ void __launch_bounds__(WARPS * 32)
+    chunk_partial_mma_kernel(PartialArgs a) {
+  using S = Smem<__nv_bfloat16, HD, WARPS>;
+  constexpr int kThreads = WARPS * 32;
+  constexpr int kRows = S::kRows;
+  constexpr int kKs = HD / 16;    // k-steps of Q K^T
+  constexpr int kNb = HD / 8;     // n-blocks of O
+  constexpr int kSb = kKeys / 8;  // n-blocks of S
+  extern __shared__ __align__(128) char smem[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);
+  char* ring = smem + S::kQ;
+  int* pos_ring = reinterpret_cast<int*>(smem + S::kBytes);  // [stage][key]
+  int* warp_n = pos_ring + kStages * kKeys;
+  int* own_col = warp_n + WARPS;
+  int* own_page = own_col + a.cols;
+
+  const int n_kv = a.n_kv, group = a.n_q / n_kv;
+  const int b = blockIdx.y / n_kv, kvh = blockIdx.y % n_kv;
+  const int rows_total = a.T * group;                   // row r: token r / group, head r % group
+  const int row0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // heavy (late) tiles first
+  const int split = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, c = lane & 3;
+  const int shard = a.shard, pages_local = a.pages_local;
+
+  // Key bound of this block: below ctx (and the table's width), at or
+  // before its last query position.
+  const int ctx = a.ctx_lens[b];
+  const int qs = a.q_pos[static_cast<long long>(b) * a.T];
+  const int t_last = (min(row0 + kRows, rows_total) - 1) / group;
+  const int hi = min(min(ctx, a.P * a.ps), qs + t_last + 1);
+  const int* table = a.tables + static_cast<long long>(b) * a.P;
+
+  // The owned columns of this split below the bound, in table order: key
+  // j < n_keys is offset j % ps of local page own_page[j / ps].
+  const int c0 = split * a.cols;
+  const int c1 = hi > 0 ? min(c0 + a.cols, (hi + a.ps - 1) / a.ps) : c0;
+  int n_own = 0;
+  for (int base = c0; base < c1; base += kThreads) {  // uniform over the block
+    const int col = base + threadIdx.x;
+    const int page = col < c1 ? table[col] : -1;
+    const bool own = page >= 0 && page / pages_local == shard;
+    const unsigned ball = __ballot_sync(0xffffffffu, own);
+    if (lane == 0) warp_n[warp] = __popc(ball);
+    __syncthreads();
+    int before = n_own;
+    for (int w = 0; w < WARPS; ++w) before += w < warp ? warp_n[w] : 0;
+    if (own) {
+      const int i = before + __popc(ball & ((1u << lane) - 1u));
+      own_col[i] = col;
+      own_page[i] = page - shard * pages_local;
+    }
+    for (int w = 0; w < WARPS; ++w) n_own += warp_n[w];
+    __syncthreads();  // the list is complete; warp_n is free
+  }
+  const int n_keys = n_own * a.ps;
+  const int n_tiles = (n_keys + kKeys - 1) / kKeys;
+
+  // Keys at positions pos < lim[hr] are live for this thread's rows g (hr 0)
+  // and g + 8.
+  int lim[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = row0 + warp * 16 + g + 8 * hr;
+    lim[hr] = r < rows_total ? min(hi, qs + r / group + 1) : 0;
+  }
+
+  // Start tile it's copies into its stage and write its keys' positions
+  // (INT_MAX past n_keys).
+  auto issue = [&](int it) {
+    const int j0 = it * kKeys;
+    int* pos_s = pos_ring + (it % kStages) * kKeys;
+    for (int key = threadIdx.x; key < kKeys; key += kThreads) {
+      const int j = j0 + key;
+      pos_s[key] = j < n_keys ? own_col[j / a.ps] * a.ps + j % a.ps : INT_MAX;
+    }
+    load_kv_tile<__nv_bfloat16, HD, kThreads>(a.k, a.v, nullptr, nullptr, n_kv, kvh,
+                                              OwnedKeys{own_page, j0, n_keys, a.ps},
+                                              ring + (it % kStages) * S::kStage, nullptr);
+  };
+
+  if (n_tiles > 0) {
+    constexpr int kChunks = HD / 8;
+    for (int i = threadIdx.x; i < kRows * kChunks; i += kThreads) {
+      const int r = i / kChunks, ch = i % kChunks;
+      const int gr = row0 + r;
+      const bool live = gr < rows_total;
+      const int t = live ? gr / group : 0, h = kvh * group + (live ? gr % group : 0);
+      const long long row = (static_cast<long long>(b) * a.T + t) * a.n_q + h;  // (b, t, h)
+      cp_async16(q_s + swz<HD>(r, ch), a.q + row * HD + ch * 8, live);
+    }
+  }
+  // The first kStages - 1 tiles, one copy group each (Q rides with tile 0).
+  for (int it = 0; it < kStages - 1; ++it) {
+    if (it < n_tiles) issue(it);
+    cp_async_commit();
+  }
+
+  uint32_t qf[kKs][4];
+  float o[kNb][4];
+#pragma unroll
+  for (int nb = 0; nb < kNb; ++nb) o[nb][0] = o[nb][1] = o[nb][2] = o[nb][3] = 0.f;
+  float m2[2] = {kNegInf, kNegInf};  // running max, log2 units
+  float l[2] = {0.f, 0.f};           // this thread's share of the running sum
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % kStages;
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // tile it landed; every warp is done with tile it - 1
+    const int next = it + kStages - 1;  // into the stage tile it - 1 used
+    if (next < n_tiles) issue(next);
+    cp_async_commit();
+    if (it == 0) {
+#pragma unroll
+      for (int ks = 0; ks < kKs; ++ks) {
+        const int mat = lane >> 3;
+        ldmatrix_x4(qf[ks], q_s + swz<HD>(warp * 16 + (lane & 7) + (mat & 1) * 8,
+                                          2 * ks + (mat >> 1)));
+      }
+    }
+    const __nv_bfloat16* k_t = reinterpret_cast<const __nv_bfloat16*>(ring + st * S::kStage);
+    const __nv_bfloat16* v_t = k_t + kKeys * HD;
+    const int* pos_s = pos_ring + st * kKeys;
+    // A warp whose rows see no key of this tile skips it (p = 0, alpha = 1).
+    if (!__any_sync(0xffffffffu, pos_s[0] < lim[0] || pos_s[0] < lim[1])) continue;
+
+    // S = Q K^T for this warp's 16 rows and the tile's 64 keys.
+    float s[kSb][4];
+#pragma unroll
+    for (int j = 0; j < kSb; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kKs; ++ks) {
+#pragma unroll
+      for (int jj = 0; jj < kSb / 2; ++jj) {
+        uint32_t kb[4];
+        const int mat = lane >> 3;
+        ldmatrix_x4(kb, k_t + swz<HD>(16 * jj + (lane & 7) + (mat >> 1) * 8, 2 * ks + (mat & 1)));
+        mma_bf16(s[2 * jj], qf[ks], kb[0], kb[1]);
+        mma_bf16(s[2 * jj + 1], qf[ks], kb[2], kb[3]);
+      }
+    }
+
+    // Online softmax over the tile, rows g and g + 8 of the warp, each score
+    // column masked by its key's position.
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < kSb; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float x = pos_s[8 * j + 2 * c + e] < lim[hr]
+                              ? s[j][2 * hr + e] * a.scale_log2 : kNegInf;
+          s[j][2 * hr + e] = x;
+          mx = fmaxf(mx, x);
+        }
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m2[hr], mx);
+      const float alpha = exp2f(m2[hr] - m_new);
+      m2[hr] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < kSb; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = pos_s[8 * j + 2 * c + e] < lim[hr]
+                              ? exp2f(s[j][2 * hr + e] - m_new) : 0.f;
+          sum += p;
+          s[j][2 * hr + e] = p;
+        }
+      }
+      l[hr] = l[hr] * alpha + sum;
+#pragma unroll
+      for (int nb = 0; nb < kNb; ++nb) {
+        o[nb][2 * hr] *= alpha;
+        o[nb][2 * hr + 1] *= alpha;
+      }
+    }
+
+    // O += P V, P as hi + lo bf16 parts.
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk) {
+      uint32_t ph[4], pl[4];
+      split_bf16(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+      split_bf16(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+      split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+      split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+#pragma unroll
+      for (int dd = 0; dd < kNb / 2; ++dd) {
+        uint32_t vb[4];
+        const int mat = lane >> 3;
+        ldmatrix_x4_trans(vb, v_t + swz<HD>(16 * kk + (lane & 7) + (mat & 1) * 8,
+                                            2 * dd + (mat >> 1)));
+        mma_bf16(o[2 * dd], ph, vb[0], vb[1]);
+        mma_bf16(o[2 * dd], pl, vb[0], vb[1]);
+        mma_bf16(o[2 * dd + 1], ph, vb[2], vb[3]);
+        mma_bf16(o[2 * dd + 1], pl, vb[2], vb[3]);
+      }
+    }
+  }
+
+  // (acc, m, l) of split `split`: unsplit, the output; split, the workspace,
+  // which the last split of this row tile to finish merges.
+  const long long n_rows = static_cast<long long>(gridDim.y / n_kv) * a.T * a.n_q;
+  const int splits = gridDim.z;
+  float* ws_acc = splits == 1 ? a.acc : a.ws;
+  float* ws_m = splits == 1 ? a.m : a.ws + splits * n_rows * HD;
+  float* ws_l = splits == 1 ? a.l : ws_m + splits * n_rows;
+  // Row r of the tile is (b, t, h) = row_of(r) of the [B, T, n_q] rows.
+  auto row_of = [&](int r) {
+    const int gr = row0 + r;
+    return (static_cast<long long>(b) * a.T + gr / group) * a.n_q + kvh * group + gr % group;
+  };
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 1);
+    l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 2);
+    const int r = warp * 16 + g + 8 * hr;
+    if (row0 + r >= rows_total) continue;
+    const long long ws_row = split * n_rows + row_of(r);
+    float* dst = ws_acc + ws_row * HD;
+#pragma unroll
+    for (int nb = 0; nb < kNb; ++nb)
+      *reinterpret_cast<float2*>(dst + 8 * nb + 2 * c) =
+          make_float2(o[nb][2 * hr], o[nb][2 * hr + 1]);
+    if (c == 0) {
+      ws_m[ws_row] = l[hr] > 0.f ? m2[hr] * kLn2 : kNegInf;
+      ws_l[ws_row] = l[hr];
+    }
+  }
+  if (splits == 1) return;
+
+  __shared__ int is_last;
+  __threadfence();
+  __syncthreads();
+  int* counter = a.counters + static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x;
+  if (threadIdx.x == 0) is_last = atomicAdd(counter, 1) == splits - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  // Per row: M = max_s m_s, weights c_s = e^(m_s - M) in the idle ring, l =
+  // sum_s l_s c_s; then acc = sum_s acc_s c_s, all in split order, where a
+  // split of weight 0 (it saw no key of the row) is not read. A row no split
+  // saw stays (0, -1e30, 0).
+  const int n_tile_rows = min(kRows, rows_total - row0);
+  float* wt = reinterpret_cast<float*>(ring);  // [split][row]
+  for (int r = threadIdx.x; r < n_tile_rows; r += kThreads) {
+    const long long row = row_of(r);
+    float mx = kNegInf;
+    for (int sp = 0; sp < splits; ++sp) mx = fmaxf(mx, __ldcg(ws_m + sp * n_rows + row));
+    float den = 0.f;
+    for (int sp = 0; sp < splits; ++sp) {
+      const float w = expf(__ldcg(ws_m + sp * n_rows + row) - mx);
+      wt[sp * kRows + r] = w;
+      den += __ldcg(ws_l + sp * n_rows + row) * w;
+    }
+    a.m[row] = mx;
+    a.l[row] = den;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < n_tile_rows * (HD / 4); i += kThreads) {
+    const int r = i / (HD / 4), d = 4 * (i % (HD / 4));
+    const long long row = row_of(r);
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int sp = 0; sp < splits; ++sp) {
+      const float w = wt[sp * kRows + r];
+      if (w == 0.f) continue;
+      const float4 x = __ldcg(reinterpret_cast<const float4*>(ws_acc + (sp * n_rows + row) * HD + d));
+      sum.x += x.x * w;
+      sum.y += x.y * w;
+      sum.z += x.z * w;
+      sum.w += x.w * w;
+    }
+    *reinterpret_cast<float4*>(a.acc + row * HD + d) = sum;
+  }
+  if (threadIdx.x == 0) *counter = 0;  // ready for the next launch
+}
+
 // out[n, :] = sum_s acc[s, n, :] e^(m[s, n] - M) / max(sum_s l[s, n] e^(m[s, n] - M), 1e-30),
 // M = max_s m[s, n]; sums in split order. One warp per row, four columns a
 // lane; the loads of successive splits are independent, so they pipeline.
@@ -501,21 +755,37 @@ int launch(const ChunkArgs& a, int B, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename TKV, int HD>
-int launch_rows(const ChunkArgs& a, int B, int rows, cudaStream_t stream) {
-  if (rows == 32) return launch<TKV, HD, 2>(a, B, stream);
-  if (rows == 64) return launch<TKV, HD, 4>(a, B, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+template <int HD, int WARPS>
+int launch_partial(const PartialArgs& a, int B, cudaStream_t stream) {
+  const int rows = WARPS * 16;
+  const int q_tiles = (a.T * (a.n_q / a.n_kv) + rows - 1) / rows;
+  const int smem = PartialSmem<HD, WARPS>::bytes(a.cols);
+  // The merge's weights (splits x rows floats) live in the ring.
+  if (static_cast<long long>(a.splits) * rows > kStages * Smem<__nv_bfloat16, HD, WARPS>::kStage / 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = chunk_partial_mma_kernel<HD, WARPS>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(q_tiles, B * a.n_kv, a.splits), WARPS * 32, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename TKV>
 int launch_hd(const ChunkArgs& a, int B, int hd, int rows, cudaStream_t stream) {
-  if (hd == 64) return launch_rows<TKV, 64>(a, B, rows, stream);
-  if (hd == 128) return launch_rows<TKV, 128>(a, B, rows, stream);
+  if (hd == 64 && rows == 32) return launch<TKV, 64, 2>(a, B, stream);
+  if (hd == 64 && rows == 64) return launch<TKV, 64, 4>(a, B, stream);
+  if (hd == 128 && rows == 32) return launch<TKV, 128, 2>(a, B, stream);
+  if (hd == 128 && rows == 64) return launch<TKV, 128, 4>(a, B, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// The checks both entry points share.
+bool valid_plan(int n_q, int n_kv, int ps, int P, int splits, int cols) {
+  return n_kv > 0 && n_q % n_kv == 0 && ps > 0 && P >= 0 && splits >= 1 && cols >= 0 &&
+         static_cast<long long>(splits) * cols >= P;
+}
 
 }  // namespace
 
@@ -535,8 +805,7 @@ int rb_paged_chunk_attention_mma(const void* q, const void* k, const void* v,
                                  int n_kv, int hd, int ps, int P, int rows, int splits,
                                  int cols, float scale, int kv_dtype, void* stream) {
   if (B == 0 || T == 0) return 0;
-  if (n_kv <= 0 || n_q % n_kv != 0 || ps <= 0 || P < 0 || splits < 1 || cols < 0 ||
-      static_cast<long long>(splits) * cols < P)
+  if (!valid_plan(n_q, n_kv, ps, P, splits, cols))
     return static_cast<int>(cudaErrorInvalidValue);
   if ((kv_dtype == kI8) != (k_scale != nullptr && v_scale != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -550,10 +819,46 @@ int rb_paged_chunk_attention_mma(const void* q, const void* k, const void* v,
               static_cast<const int*>(q_start), static_cast<__nv_bfloat16*>(out),
               static_cast<float*>(ws_acc), static_cast<float*>(ws_m),
               static_cast<float*>(ws_l), T, n_q, n_kv, ps, P, cols, splits,
-              scale * 1.4426950408889634f};
+              scale * kLog2e};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kv_dtype == kBF16) return launch_hd<__nv_bfloat16>(a, B, hd, rows, s);
   if (kv_dtype == kI8) return launch_hd<int8_t>(a, B, hd, rows, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The page-split chunk partial: q [B, T, n_q, hd] bf16 over page shard
+// `shard`'s bf16 slice k, v [pages_local * ps, n_kv, hd] (tables hold global
+// page ids), causal over q_pos [B, T] (row b's positions q_pos[b, 0] + t).
+// Writes acc [B, T, n_q, hd], m and l [B, T, n_q] f32,
+// un-normalised, m in natural-log units. With splits > 1, ws holds
+// splits * B * T * n_q * (hd + 2) f32 and counters q_tiles * B * n_kv int32
+// zeros (left zero). Returns cudaGetLastError() of the launch.
+int rb_paged_chunk_attention_partial_mma(const void* q, const void* k, const void* v,
+                                         const void* tables, const void* ctx_lens,
+                                         const void* q_pos, void* acc, void* m, void* l,
+                                         void* ws, void* counters, int B, int T, int n_q,
+                                         int n_kv, int hd, int ps, int P, int rows, int splits,
+                                         int cols, int shard, int pages_local, float scale,
+                                         void* stream) {
+  if (B == 0 || T == 0) return 0;
+  if (!valid_plan(n_q, n_kv, ps, P, splits, cols) || shard < 0 || pages_local <= 0 ||
+      acc == nullptr || m == nullptr || l == nullptr ||
+      (splits > 1 && (ws == nullptr || counters == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(acc) ||
+      (splits > 1 && !aligned16(ws)))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const PartialArgs a{static_cast<const __nv_bfloat16*>(q), k, v,
+                      static_cast<const int*>(tables), static_cast<const int*>(ctx_lens),
+                      static_cast<const int*>(q_pos), static_cast<float*>(acc),
+                      static_cast<float*>(m), static_cast<float*>(l), static_cast<float*>(ws),
+                      static_cast<int*>(counters), T, n_q, n_kv, ps, P, cols, splits, shard,
+                      pages_local, scale * kLog2e};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hd == 64 && rows == 32) return launch_partial<64, 2>(a, B, s);
+  if (hd == 64 && rows == 64) return launch_partial<64, 4>(a, B, s);
+  if (hd == 128 && rows == 32) return launch_partial<128, 2>(a, B, s);
+  if (hd == 128 && rows == 64) return launch_partial<128, 4>(a, B, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -2,8 +2,11 @@
 //
 // Replaces the Pallas TPU kernels of runbookai_tpu/ops/paged_attention_pallas.py:
 //
-//   rb_paged_decode_attention  <- paged_decode_attention (_decode_kernel), T = 1;
-//                                 over an int8 pool <- _paged_decode_attention_int8
+//   rb_paged_decode_attention  <- paged_decode_attention (_decode_kernel), T = 1,
+//                                 for f32 queries or an f32 pool (bf16 queries
+//                                 over a bf16 pool take the tensor-core kernel
+//                                 of decode_attention.cu); over an int8 pool
+//                                 <- _paged_decode_attention_int8
 //                                 (_decode_kernel_int8)
 //   rb_paged_chunk_attention   <- paged_chunk_attention  (_chunk_kernel),  T > 1,
 //                                 f32 queries only: bf16 queries take the
@@ -11,7 +14,9 @@
 //   rb_paged_decode_attention_partial <- paged_decode_attention_partial
 //                                 (_decode_kernel_partial): KV page-split serving
 //   rb_paged_chunk_attention_partial  <- the XLA _partial_flash of
-//                                 runbookai_tpu/parallel/kv_split.py (T > 1)
+//                                 runbookai_tpu/parallel/kv_split.py (T > 1),
+//                                 for f32 queries or an f32 pool (bf16 over
+//                                 bf16 takes chunk_attention.cu)
 //
 // The pool holds float32 or bfloat16 K/V, or int8 K/V with one float32 absmax
 // scale per (token, kv head) (runbookai_tpu_torch/ops/attention.py quantize_kv).
@@ -276,17 +281,20 @@ int dispatch(const Args& a, int B, int threads, int q_dtype, int kv_dtype, cudaS
     if (q_dtype == kF32 && kv_dtype == kI8)
       return launch<float, int8_t, kCausal, false>(a, B, threads, stream);
   }
-  // bf16-query chunk calls take chunk_attention.cu's tensor-core kernel, so
-  // the causal non-partial template has no bf16-query instantiation.
+  // bf16 queries over a bf16 pool take the tensor-core kernels (chunk calls
+  // and the chunk partial chunk_attention.cu, decode decode_attention.cu),
+  // except K4: of those, only the decode partial is instantiated here.
   if constexpr (!kCausal || kPartial) {
     if (q_dtype == kBF16 && kv_dtype == kF32)
       return launch<__nv_bfloat16, float, kCausal, kPartial>(a, B, threads, stream);
+  }
+  if constexpr (!kCausal && kPartial) {
     if (q_dtype == kBF16 && kv_dtype == kBF16)
-      return launch<__nv_bfloat16, __nv_bfloat16, kCausal, kPartial>(a, B, threads, stream);
-    if constexpr (!kPartial) {
-      if (q_dtype == kBF16 && kv_dtype == kI8)
-        return launch<__nv_bfloat16, int8_t, kCausal, false>(a, B, threads, stream);
-    }
+      return launch<__nv_bfloat16, __nv_bfloat16, false, true>(a, B, threads, stream);
+  }
+  if constexpr (!kCausal && !kPartial) {
+    if (q_dtype == kBF16 && kv_dtype == kI8)
+      return launch<__nv_bfloat16, int8_t, false, false>(a, B, threads, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

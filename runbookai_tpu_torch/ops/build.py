@@ -3,7 +3,7 @@
 Every source in ``runbookai_tpu_torch/csrc/`` is compiled by ``nvcc`` for
 ``sm_90a`` (one ``nvcc`` per source, all started together) and linked into
 one shared library with a plain C interface, named by a hash of all the
-sources, under ``runbookai_tpu_torch/_build/``. :func:`library` builds it on
+sources and headers, under ``runbookai_tpu_torch/_build/``. :func:`library` builds it on
 first use unless a library of the same sources exists, and loads it with
 ``ctypes``; :data:`SIGNATURES` declares every exported function.
 """
@@ -44,8 +44,14 @@ SIGNATURES = {
     # ws_l, B, T, n_q, n_kv, hd, ps, P, rows, splits, cols, scale, kv_dtype,
     # stream
     "rb_paged_chunk_attention_mma": [_p] * 12 + [_i] * 10 + [_f, _i, _p],
+    # q, k, v, tables, ctx_lens, q_pos, acc, m, l, ws, counters, B, T, n_q,
+    # n_kv, hd, ps, P, rows, splits, cols, shard, pages_local, scale, stream
+    "rb_paged_chunk_attention_partial_mma": [_p] * 11 + [_i] * 12 + [_f, _p],
     # acc, m, l, out, splits, n_rows, hd, out_dtype, stream
     "rb_paged_chunk_merge": [_p] * 4 + [_i, ctypes.c_longlong, _i, _i, _p],
+    # q, k, v, tables, ctx_lens, out, ws, counters, B, n_q, n_kv, hd, ps, P,
+    # splits, cols, scale, stream
+    "rb_paged_decode_attention_mma": [_p] * 8 + [_i] * 8 + [_f, _p],
     # x, q, s, out, partial, M, K, N, k_split, x_dtype, stream
     "rb_qmm_int8": [_p] * 5 + [_i] * 5 + [_p],
 }
@@ -59,10 +65,10 @@ def sources() -> list[Path]:
 
 def build() -> tuple[Path, str]:
     """Compile and link every source unless a library built from the same
-    source bytes exists. Returns (library path, ptxas report)."""
+    source and header bytes exists. Returns (library path, ptxas report)."""
     srcs = sources()
     digest = hashlib.sha256()
-    for src in srcs:
+    for src in sorted([*srcs, *CSRC.glob("*.cuh")]):
         digest.update(src.name.encode() + b"\0" + src.read_bytes())
     lib_path = BUILD_DIR / f"librunbook_kernels_{digest.hexdigest()[:16]}.so"
     if lib_path.exists():

@@ -1,12 +1,16 @@
 """Paged attention kernels of the serving forward and their plain versions.
 
-CUDA kernels (``csrc/paged_attention.cu``, ``csrc/chunk_attention.cu``)
-replace the Pallas TPU kernels of
+CUDA kernels (``csrc/paged_attention.cu``, ``csrc/chunk_attention.cu``,
+``csrc/decode_attention.cu``) replace the Pallas TPU kernels of
 ``runbookai_tpu/ops/paged_attention_pallas.py``:
 
 - :func:`paged_decode_attention` — one query token per sequence (T = 1);
   replaces Pallas ``paged_decode_attention`` and, over an int8 pool, its
-  ``_paged_decode_attention_int8``.
+  ``_paged_decode_attention_int8``. bf16 queries over a bf16 pool
+  (:func:`decode_route`) take the tensor-core kernel of
+  ``decode_attention.cu``, split over page-table columns as
+  :func:`decode_plan` says and merged in the same launch; the rest take the
+  CUDA-core kernel of ``paged_attention.cu``.
 - :func:`paged_chunk_attention` — T > 1 (chunked prefill and the speculative
   verify); replaces Pallas ``paged_chunk_attention``. Over an int8 pool it
   serves the calls that the JAX package sends to its XLA gather path. bf16
@@ -19,7 +23,10 @@ replace the Pallas TPU kernels of
   ``(acc, m, l)`` for the merge across page shards; replaces Pallas
   ``paged_decode_attention_partial``.
 - :func:`paged_chunk_attention_partial` — the same for T > 1; replaces the
-  XLA ``_partial_flash`` of ``runbookai_tpu/parallel/kv_split.py``.
+  XLA ``_partial_flash`` of ``runbookai_tpu/parallel/kv_split.py``. bf16
+  queries over a bf16 slice take the tensor-core chunk partial of
+  ``chunk_attention.cu`` over the shard's own pages, split as
+  :func:`chunk_plan` says and merged in the same launch.
 
 :func:`paged_decode_attention_tp` and :func:`paged_chunk_attention_tp` run
 the first two per head shard of a tensor-parallel mesh, as the JAX
@@ -44,6 +51,7 @@ per wrapper and pool type.
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Optional
@@ -158,13 +166,13 @@ def plain_paged_attention(
     return (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
 
 
-def merge_partials(parts, device: torch.device) -> torch.Tensor:
-    """Merge flash partials ``(acc, m, l)`` (of page shards, or of the splits
-    of a chunk call) on ``device``, in f32: the max of the m's, each part's
-    correction ``exp(m - m_max)``, the corrected sums of l and acc in the
-    parts' order, and their quotient with the normaliser clamped at 1e-30.
-    A row that no part saw a key for stays zeros. The plain version of the
-    merge kernel (:func:`chunk_merge`), before its cast."""
+def combine_partials(parts, device: torch.device):
+    """Combine flash partials ``(acc, m, l)`` into one, on ``device``, in
+    f32: ``m`` the max of the m's, each part's correction ``exp(m_part -
+    m)``, ``l`` and ``acc`` the corrected sums in the parts' order. Parts
+    that saw no key (``(0, -1e30, 0)``) move nothing; if none did, the
+    result is ``(0, -1e30, 0)``. The plain version of the chunk partial's
+    merge of its splits, made in the kernel's launch."""
     accs = [a.to(device) for a, _, _ in parts]
     ms = [m.to(device) for _, m, _ in parts]
     ls = [l.to(device) for _, _, l in parts]
@@ -172,7 +180,17 @@ def merge_partials(parts, device: torch.device) -> torch.Tensor:
     corr = [torch.exp(m - m_g) for m in ms]
     l_g = sum(l * c for l, c in zip(ls, corr))
     acc_g = sum(a * c[..., None] for a, c in zip(accs, corr))
-    return acc_g / l_g.clamp_min(1e-30)[..., None]
+    return acc_g, m_g, l_g
+
+
+def merge_partials(parts, device: torch.device) -> torch.Tensor:
+    """Merge flash partials ``(acc, m, l)`` (of page shards, or of the splits
+    of a chunk call) on ``device``, in f32: :func:`combine_partials`, then
+    acc over l with the normaliser clamped at 1e-30. A row that no part saw
+    a key for stays zeros. The plain version of the merge kernel
+    (:func:`chunk_merge`), before its cast."""
+    acc, _, l = combine_partials(parts, device)
+    return acc / l.clamp_min(1e-30)[..., None]
 
 
 def plain_chunk_partials(q, k_flat: Pool, v_flat: Pool, page_tables, ctx_lens, q_start,
@@ -251,7 +269,8 @@ def paged_decode_attention(
     ctx_lens: torch.Tensor,  # [B] int32
     page_size: int,
 ) -> torch.Tensor:
-    """Ragged paged attention for decode (one query token per sequence)."""
+    """Ragged paged attention for decode (one query token per sequence). On
+    CUDA tensors the kernel is chosen by :func:`decode_route`."""
     if q.device.type == "cpu":
         return plain_paged_attention(q[:, None], k_flat, v_flat, page_tables,
                                      ctx_lens, None, page_size)[:, 0]
@@ -259,16 +278,104 @@ def paged_decode_attention(
     _check(q, k, v, ks, vs, page_tables, ctx_lens, page_size)
     b, n_q, hd = q.shape
     out = torch.empty_like(q)
-    rc = library().rb_paged_decode_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(ks), _ptr(vs),
-        page_tables.data_ptr(), ctx_lens.data_ptr(), out.data_ptr(),
-        b, n_q, k.shape[1], hd, page_size, page_tables.shape[1],
-        1.0 / math.sqrt(hd), _DTYPE_CODES[q.dtype], _DTYPE_CODES[k.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     name = "paged_decode_attention" + ("_int8" if ks is not None else "")
-    raise_on(rc, name)
+    if decode_route(q.dtype, hd, k.dtype) == "mma":
+        _decode_mma(q, k, v, page_tables, ctx_lens, page_size, out, stream)
+    else:
+        rc = library().rb_paged_decode_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(ks), _ptr(vs),
+            page_tables.data_ptr(), ctx_lens.data_ptr(), out.data_ptr(),
+            b, n_q, k.shape[1], hd, page_size, page_tables.shape[1],
+            1.0 / math.sqrt(hd), _DTYPE_CODES[q.dtype], _DTYPE_CODES[k.dtype], stream)
+        raise_on(rc, name)
     launches[name] += 1
     return out
+
+
+def decode_route(q_dtype: torch.dtype, hd: int, pool_dtype: torch.dtype) -> str:
+    """The kernel a decode call, or a page-split chunk partial, on CUDA
+    tensors launches, decided before the launch: ``"mma"`` (the tensor-core
+    kernels, ``decode_attention.cu`` and ``chunk_attention.cu``) for bf16
+    queries with head_dim 64 or 128 over a bf16 pool; ``"cuda_core"``
+    (``paged_attention.cu``) for f32 queries, an f32 pool, and bf16 queries
+    over an int8 pool (K3); any other call raises."""
+    if chunk_mma_eligible(q_dtype, hd) and pool_dtype == torch.bfloat16:
+        return "mma"
+    if q_dtype == torch.float32 or (q_dtype == torch.bfloat16
+                                    and pool_dtype in (torch.float32, torch.int8)):
+        return "cuda_core"
+    raise ValueError(f"no decode kernel takes {q_dtype} queries with head_dim {hd} over "
+                     f"a {pool_dtype} pool: bf16 over bf16 needs head_dim 64 or 128")
+
+
+# At least this many table columns (one 64-key tile of 16-token pages) a
+# decode split.
+DECODE_MIN_COLS = 4
+
+
+@dataclass(frozen=True)
+class DecodePlan:
+    """How the tensor-core decode kernel covers one call."""
+
+    splits: int  # splits over page-table columns
+    cols: int  # table columns per split
+    workspace_floats: int  # f32 (acc, m, l) of every split; 0 unsplit
+
+
+@functools.lru_cache(maxsize=256)
+def decode_plan(b: int, n_q: int, n_kv: int, hd: int, p: int) -> DecodePlan:
+    """Split count of a decode call, from its shapes only (never
+    ``ctx_lens``, so the wrapper makes no host sync): ``min(ceil(2 * SMS /
+    n_kv), floor(P / DECODE_MIN_COLS))`` splits (at least one), so that one
+    sequence whose context fills the table spreads its kv heads' blocks
+    over every SM, each of ``ceil(P / S)`` columns (the count then shrunk
+    so that no split is empty). Blocks past a sequence's context exit
+    before loading; the live ones merge in the launch."""
+    splits = max(1, min(-(-2 * SMS // n_kv), p // DECODE_MIN_COLS))
+    cols = -(-p // splits)
+    if cols:
+        splits = -(-p // cols)
+    return DecodePlan(splits, cols, 0 if splits == 1 else b * n_q * splits * (hd + 2))
+
+
+# Per (device, stream): the int32 counters (zero between launches) and f32
+# split partials of the kernels that merge their splits in the launch (the
+# decode kernel, the chunk partial), grown when a larger shape comes. Calls
+# on one stream run in order, so they share it.
+_split_workspaces: dict = {}
+
+
+def _split_workspace(device: torch.device, stream: int, n_counters: int, n_floats: int):
+    key = (device.index, stream)
+    counters, ws = _split_workspaces.get(key, (None, None))
+    if counters is None or counters.numel() < n_counters or ws.numel() < n_floats:
+        n_counters = max(n_counters, 0 if counters is None else counters.numel())
+        n_floats = max(n_floats, 0 if ws is None else ws.numel())
+        counters = torch.zeros(n_counters, dtype=torch.int32, device=device)
+        ws = torch.empty(n_floats, dtype=torch.float32, device=device)
+        _split_workspaces[key] = (counters, ws)
+    return counters, ws
+
+
+def _decode_mma(q, k, v, page_tables, ctx_lens, page_size, out, stream):
+    """The tensor-core decode kernel, one launch, into ``out``."""
+    b, n_q, hd = q.shape
+    n_kv, p = k.shape[1], page_tables.shape[1]
+    if n_q // n_kv > 16:
+        raise ValueError(f"the bf16 decode kernel takes GQA groups of at most 16 query "
+                         f"heads, not {n_q // n_kv}")
+    if any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("the bf16 decode kernel needs q and the pools 16-byte aligned")
+    plan = decode_plan(b, n_q, n_kv, hd, p)
+    counters = ws = None
+    if plan.splits > 1:
+        counters, ws = _split_workspace(q.device, stream, b * n_kv, plan.workspace_floats)
+    rc = library().rb_paged_decode_attention_mma(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), page_tables.data_ptr(),
+        ctx_lens.data_ptr(), out.data_ptr(), _ptr(ws), _ptr(counters), b, n_q, n_kv, hd,
+        page_size, p, plan.splits, plan.cols, 1.0 / math.sqrt(hd), stream)
+    raise_on(rc, "paged_decode_attention")
 
 
 def chunk_q_block(n_q: int, n_kv: int, t: int) -> int:
@@ -308,6 +415,7 @@ class ChunkPlan:
     workspace_bytes: int  # f32 (acc, m, l) of every split; 0 unsplit
 
 
+@functools.lru_cache(maxsize=256)
 def chunk_plan(b: int, t: int, n_q: int, n_kv: int, hd: int, p: int) -> ChunkPlan:
     """Split count of a chunk call, from its shapes only (never ``ctx_lens``,
     so the wrapper makes no host sync): none where the ``B * n_kv *
@@ -490,28 +598,63 @@ def paged_chunk_attention_partial(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`paged_decode_attention_partial` for T > 1 chunks, causal over
     ``q_positions[:, 0] + t``. Returns ``(acc [B, T, n_q, hd], m [B, T,
-    n_q], l [B, T, n_q])`` in f32."""
-    q_start = q_positions[:, 0].contiguous()
+    n_q], l [B, T, n_q])`` in f32. On CUDA tensors the kernel is chosen by
+    :func:`decode_route`."""
     if q.device.type == "cpu":
         return plain_paged_attention_partial(q, k_local, v_local, page_tables,
-                                             ctx_lens, q_start, page_size, my_pg,
-                                             pages_local)
+                                             ctx_lens, q_positions[:, 0], page_size,
+                                             my_pg, pages_local)
+    b, t, n_q, hd = q.shape
+    n_kv, p = k_local.shape[1], page_tables.shape[1]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if decode_route(q.dtype, hd, k_local.dtype) == "mma":
+        # The kernel reads each row's first position from [B, T] itself.
+        q_positions = q_positions.contiguous()
+        _check_partial(q, k_local, v_local, page_tables, ctx_lens, page_size, my_pg,
+                       pages_local, (q_positions,))
+        out = _chunk_partial_mma(q, k_local, v_local, page_tables, ctx_lens, q_positions,
+                                 my_pg, page_size, pages_local, stream)
+        launches["paged_chunk_attention_partial"] += 1
+        return out
+    q_start = q_positions[:, 0].contiguous()
     _check_partial(q, k_local, v_local, page_tables, ctx_lens, page_size, my_pg,
                    pages_local, (q_start,))
-    b, t, n_q, hd = q.shape
-    n_kv = k_local.shape[1]
     acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     m = torch.empty((b, t, n_q), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
     rc = library().rb_paged_chunk_attention_partial(
         q.data_ptr(), k_local.data_ptr(), v_local.data_ptr(), page_tables.data_ptr(),
         ctx_lens.data_ptr(), q_start.data_ptr(), acc.data_ptr(), m.data_ptr(),
-        l.data_ptr(), b, t, n_q, n_kv, hd, page_size, page_tables.shape[1],
+        l.data_ptr(), b, t, n_q, n_kv, hd, page_size, p,
         chunk_q_block(n_q, n_kv, t), my_pg, pages_local, 1.0 / math.sqrt(hd),
-        _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_local.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_local.dtype], stream)
     raise_on(rc, "paged_chunk_attention_partial")
     launches["paged_chunk_attention_partial"] += 1
+    return acc, m, l
+
+
+def _chunk_partial_mma(q, k, v, page_tables, ctx_lens, q_positions, shard, page_size,
+                       pages_local, stream):
+    """The tensor-core chunk partial over page shard ``shard``'s own pages,
+    split as :func:`chunk_plan` says and merged in the launch."""
+    if any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("the bf16 chunk kernel needs q and the pools 16-byte aligned")
+    b, t, n_q, hd = q.shape
+    n_kv, p = k.shape[1], page_tables.shape[1]
+    plan = chunk_plan(b, t, n_q, n_kv, hd, p)
+    acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    m = torch.empty((b, t, n_q), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    counters = ws = None
+    if plan.splits > 1:
+        counters, ws = _split_workspace(q.device, stream, plan.q_tiles * b * n_kv,
+                                        plan.workspace_bytes // 4)
+    rc = library().rb_paged_chunk_attention_partial_mma(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), page_tables.data_ptr(),
+        ctx_lens.data_ptr(), q_positions.data_ptr(), acc.data_ptr(), m.data_ptr(),
+        l.data_ptr(), _ptr(ws), _ptr(counters), b, t, n_q, n_kv, hd, page_size, p, plan.rows,
+        plan.splits, plan.cols, shard, pages_local, 1.0 / math.sqrt(hd), stream)
+    raise_on(rc, "paged_chunk_attention_partial")
     return acc, m, l
 
 

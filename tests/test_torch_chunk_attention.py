@@ -285,4 +285,4 @@ def test_chip_smoke_classes_the_new_kernels_with_the_chunk_calls():
     for name, (bf16_cls, int8_cls, old) in cases.items():
         assert chip_smoke.kernel_class(ns + name) == bf16_cls
         assert chip_smoke.kernel_class(ns + name, int8_pools=True) == int8_cls
-        assert chip_smoke.old_bf16_chunk(ns + name) == old
+        assert (chip_smoke.removed_bf16(ns + name) == "chunk") == old
