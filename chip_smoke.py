@@ -9,11 +9,12 @@ Phases (any failure exits non-zero; one JSON object per phase on stdout):
    sm_90a, one nvcc per source (ptxas report in ``OUT_DIR/ptxas.txt``);
 2. hold the decode kernel against its plain version at the serving shapes
    (B=8, 32 query / 8 kv heads, head_dim 128, 16-token pages, 513-wide
-   tables, ctx 0..8191) for bf16 and f32 pools, and time it (CUDA events,
-   profiler device time, host time a call): bf16 queries take the
-   tensor-core kernel (``decode_attention.cu``, with its split count), also
-   on the served contexts (at most 950 tokens); f32 queries the CUDA-core
-   kernel;
+   tables, ctx 0..8191) for bf16 and f32 pools, and time it (CUDA events
+   over back-to-back calls and, L2 cold, one call at a time; profiler
+   device time; host time a call): bf16 queries take the tensor-core kernel
+   (``decode_attention.cu``, with its split count), also on the served
+   contexts (at most 950 tokens) and at head_dim 64 (32 query / 8 kv
+   heads); f32 queries the CUDA-core kernel;
 3. hold the chunk kernels against their plain version on a 4 x 512 prefill
    at offsets 0 and 512, a T=8 verify from ctx-1, and a chunk with a pad
    tail: bf16 queries take the tensor-core kernel (``chunk_attention.cu``),
@@ -27,7 +28,9 @@ Phases (any failure exits non-zero; one JSON object per phase on stdout):
    last page dropped;
 4. the same two checks over int8 pools (values + one f32 scale per token
    and kv head, quantized from random bf16) with bf16 and f32 queries: the
-   int8 decode kernel (K3) and the chunk kernels over int8 pools;
+   int8 decode kernel (K3: bf16 queries on the tensor-core kernel of
+   ``decode_attention.cu``, also at head_dim 64; f32 queries on the
+   CUDA-core kernel) and the chunk kernels over int8 pools;
 5. hold the int8 weight matmul kernel (K5) against its plain version at
    the 8B's four (K, N) shapes and M = 5, 8, 64, 256, show that the
    tolerance rejects a result with the last K slice dropped, and time it
@@ -41,16 +44,17 @@ Phases (any failure exits non-zero; one JSON object per phase on stdout):
    just before and read just after; both must rise;
 8. serve the same requests once more under torch.profiler: device time by
    kernel class and the device's idle share; it fails unless the bf16
-   chunk and decode calls ran the tensor-core kernels and never a removed
-   bf16-query instantiation of the CUDA-core kernel. Both serving phases
+   chunk and decode calls ran the tensor-core kernels (over int8 pools in
+   phase 9) and never a removed bf16-query instantiation of the CUDA-core
+   kernel. Both serving phases
    fail if the engine loop crashed or a request was aborted, and the first
    if no split chunk call was merged;
 9. phases 7 and 8 again with int8 weights and an int8 KV pool
    (``TorchCudaClient.build(dtype="int8", kv_cache_dtype="int8")``): the
    int8 kernels' counts must rise and the bf16 attention counts stay 0;
    then, for both configurations, the requests served twice more with every
-   chunk call of the forward (and, in bf16, every decode call) held against
-   its plain version on the same inputs (fails beyond TOL), once serving the
+   chunk and decode call of the forward held against its plain version on
+   the same inputs (fails beyond TOL), once serving the
    kernel's result and once the plain version's, and where their greedy
    streams part from phase 7's;
 10. the page-split partial kernels (K4 for decode, the chunk partial for
@@ -63,9 +67,10 @@ Phases (any failure exits non-zero; one JSON object per phase on stdout):
    loaded), the merge of both shards against K1/K2 on the unsplit pool,
    the rejection of a result with the last page dropped, and per-call
    times (events, device, host) beside the memory-efficient SDPA call that
-   returns the same partial normalised (out, log-sum-exp); bf16 chunk
-   partials take the tensor-core kernel (``chunk_attention.cu``), with
-   their split count;
+   returns the same partial normalised (out, log-sum-exp); bf16 partials
+   take the tensor-core kernels (K4 ``decode_attention.cu``'s, the chunk
+   partial ``chunk_attention.cu``'s), with their split counts, and K4 runs
+   also at head_dim 64;
 11. the tensor-parallel forward of llama3-8b-instruct at full width, depth
    cut to 2 layers, f32 weights and pool, on a model=8 x seq=2 and a
    model=8 x seq=1 mesh of 16 and 8 shards on the one card, against the
@@ -75,9 +80,9 @@ Phases (any failure exits non-zero; one JSON object per phase on stdout):
    seq=2) over a 256-page pool: pages of both page shards must be
    allocated, the partial kernels' counts must rise and K1's and K2's
    stay 0; then once more under torch.profiler, as phase 8 (it fails
-   unless the chunk partials ran the tensor-core kernel); then twice more
-   with every chunk-partial call held against its plain version, as the
-   witness of phase 9;
+   unless the chunk and decode partials ran the tensor-core kernels); then
+   twice more with every chunk- and decode-partial call held against its
+   plain version, as the witness of phase 9;
 13. W1 (``paged_ragged_attention``, run after phase 4) on the serving
    configuration's mixed batch (N = 576 tokens in 72 blocks of 8, 13
    rows): 8 decode rows at the served contexts with a 512-token prefill
@@ -230,6 +235,32 @@ def host_ms(fn, iters: int = 50) -> float:
     return elapsed / iters * 1e3
 
 
+def cold_ms(fn, iters: int = 10) -> float:
+    """Time of one call of ``fn`` that finds the 50 MB L2 cold, as a serving
+    step finds the pool (CUDA events, mean over ``iters`` calls): before each
+    call a 256 MB write evicts the L2, and a spin kernel first keeps the
+    device busy while the host enqueues the write, the events and the call,
+    so that the call alone lies between the events."""
+    import torch
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=DEVICE)
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)  # about 1 ms of device time
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    del flush
+    return total / iters
+
+
 def bound(n_bytes: float, flops: float, dtype_name: str) -> tuple[float, str]:
     t_bytes = n_bytes / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
@@ -252,6 +283,23 @@ def compare(got, want, dtype_name: str, what: str) -> float:
         raise AssertionError(f"{what}: max |err| {float(diff.max()):.3e} beyond "
                              f"atol {atol} rtol {rtol}")
     return float(diff.max())
+
+
+def one_launch(what: str) -> int:
+    """The kernel launches counted since ``reset_counts``: one wrapper call
+    must have made exactly one (no separate merge)."""
+    n = sum(counts().values())
+    if n != 1:
+        raise AssertionError(f"{what}: {counts()} launches for one call")
+    return n
+
+
+def not_slower(ms: float, library_ms: float, what: str) -> None:
+    """A tensor-core decode kernel must not take longer (CUDA events) than
+    the library call that computes the same function on the same inputs."""
+    if ms > library_ms:
+        raise AssertionError(f"{what}: {ms:.4f} ms, slower than the library's "
+                             f"{library_ms:.4f} ms")
 
 
 def cut_last_page(ctx):
@@ -342,18 +390,22 @@ def phase_build() -> dict:
 def decode_case(pa, torch, q, k, v, tables, ctx, name: str) -> dict:
     """Decode kernel against its plain version on one pool (a tensor or an
     int8 tuple), the dropped-last-page check, and its times (CUDA events
-    over back-to-back calls, profiler device time, host time a call), its
-    route and split count, and its bound."""
+    over back-to-back calls and, L2 cold, one call at a time; profiler
+    device time; host time a call), its route and split count, and its
+    bound."""
     import torch.nn.functional as F
 
     dev = q.device
     ctx_l = ctx.tolist()
     pool = k[0] if isinstance(k, tuple) else k
+    n_q, hd = q.shape[1:]
 
     def call():
         return pa.paged_decode_attention(q, k, v, tables, ctx, PS)
 
+    reset_counts()
     out = call()
+    per_call = one_launch(f"decode {name} {list(q.shape)}")
     ref = pa.plain_paged_attention(q[:, None], k, v, tables, ctx, None, PS)[:, 0]
     torch.cuda.synchronize()
     err = compare(out, ref, name, f"decode {name}")
@@ -373,22 +425,31 @@ def decode_case(pa, torch, q, k, v, tables, ctx, name: str) -> dict:
     tokens = sum(ctx_l)
     n_bytes = (2 * q.numel() * q.element_size() + tokens * 2 * token_bytes(k)
                + sum(-(-c // PS) for c in ctx_l) * 4 + len(ctx_l) * 4)
-    bound_ms, bound_by = bound(n_bytes, 4.0 * tokens * N_Q * HD, name)
-    route = pa.decode_route(q.dtype, HD, pool.dtype)
-    plan = pa.decode_plan(q.shape[0], N_Q, N_KV, HD, tables.shape[1])
+    bound_ms, bound_by = bound(n_bytes, 4.0 * tokens * n_q * hd, name)
+    route = pa.decode_route(q.dtype, hd, pool.dtype)
+    if route == "mma":
+        not_slower(ms, library_ms, f"decode {name} {list(q.shape)}")
+    plan = pa.decode_plan(q.shape[0], n_q, pool.shape[1], hd, tables.shape[1])
     return {"route": route, "splits": plan.splits if route == "mma" else 1,
-            "max_abs_err": err, "tol": TOL[name], "ms": ms,
+            "heads": [n_q, pool.shape[1]], "head_dim": hd, "launches_per_call": per_call,
+            "max_abs_err": err, "tol": TOL[name], "ms": ms, "cold_ms": cold_ms(call),
             "device_ms": device_ms(call, iters=20), "host_ms": host_ms(call),
             "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "ctx_lens": ctx_l,
             "drop_last_page": wrong}
 
 
+# A second geometry for the tensor-core decode kernels: the catalogue's
+# head_dim-64 model (llama3.2-1b-instruct: 32 query heads over 8 kv heads).
+HD64 = (32, 8, 64)
+
+
 def phase_decode(pa, torch, int8: bool = False) -> dict:
     """K1 over bf16 and f32 pools or, with ``int8``, K3 over int8 pools
     quantized from them, with queries of the same two types, on the decode
-    input (ctx 0..8191); K1 with bf16 queries (the tensor-core kernel) also
-    on the served contexts (at most 950 tokens)."""
+    input (ctx 0..8191); bf16 queries (the tensor-core kernel) also at
+    head_dim 64 (``hd64``) and, for K1, on the served contexts (at most 950
+    tokens)."""
     from runbookai_tpu_torch.ops.attention import quantize_kv
 
     dev = torch.device(DEVICE)
@@ -397,15 +458,17 @@ def phase_decode(pa, torch, int8: bool = False) -> dict:
                     "ctx_lens": DECODE_CTX}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
-        inputs = [("decode", DECODE_CTX)]
-        if dtype == torch.bfloat16 and not int8:
-            inputs.append(("served", SERVED_CTX))
-        for kind, ctx_l in inputs:
+        inputs = [("decode", DECODE_CTX, (N_Q, N_KV, HD))]
+        if dtype == torch.bfloat16:
+            inputs.append(("hd64", DECODE_CTX, HD64))
+            if not int8:
+                inputs.append(("served", SERVED_CTX, (N_Q, N_KV, HD)))
+        for kind, ctx_l, (n_q, n_kv, hd) in inputs:
             ctx = torch.tensor(ctx_l, dtype=torch.int32, device=dev)
-            k, v, tables = make_pool(gen, dtype, ctx_l, dev)
+            k, v, tables = make_pool(gen, dtype, ctx_l, dev, n_kv, hd)
             if int8:
                 k, v = quantize_kv(k), quantize_kv(v)
-            q = torch.randn((B, N_Q, HD), generator=gen, device=dev).to(dtype)
+            q = torch.randn((B, n_q, hd), generator=gen, device=dev).to(dtype)
             case = decode_case(pa, torch, q, k, v, tables, ctx, name)
             if kind == "decode":
                 result[name] = case
@@ -420,7 +483,7 @@ def phase_decode(pa, torch, int8: bool = False) -> dict:
 SERVED_CTX = [83, 150, 266, 397, 512, 640, 800, 942]
 
 
-def chunk_inputs(torch, dev, gen, dtype, kind):
+def chunk_inputs(torch, dev, gen, dtype, kind, geo=(N_Q, N_KV, HD)):
     """(q, k, v, tables, ctx, positions, real tokens per row). ``tp8_shard``
     is the verify input cut to one head shard of tp=8: 4 query heads over
     1 kv head. ``prefill_one_row`` is the engine's prefill of a single row
@@ -439,14 +502,15 @@ def chunk_inputs(torch, dev, gen, dtype, kind):
     else:  # pad tail: 100 real tokens, a full chunk, a pad row, 37 tokens
         t, starts, real = 512, [0, 512, trash, 1024], [100, 512, 0, 37]
     ctx_lens = [s + n if n else 1 for s, n in zip(starts, real)]
-    k, v, tables = make_pool(gen, dtype, ctx_lens, dev)
+    n_q, n_kv, hd = geo  # query heads, kv heads, head_dim
+    k, v, tables = make_pool(gen, dtype, ctx_lens, dev, n_kv, hd)
     pos = torch.full((len(starts), t), trash, dtype=torch.int32, device=dev)
     for i, (s, n) in enumerate(zip(starts, real)):
         if n:
             pos[i, :n] = torch.arange(s, s + n, dtype=torch.int32, device=dev)
         else:
             tables[i] = 0  # the engine's pad row: null table, ctx 1
-    q = torch.randn((len(starts), t, N_Q, HD), generator=gen, device=dev).to(dtype)
+    q = torch.randn((len(starts), t, n_q, hd), generator=gen, device=dev).to(dtype)
     ctx = torch.tensor(ctx_lens, dtype=torch.int32, device=dev)
     if kind == "tp8_shard":
         n_q = N_Q // N_KV
@@ -609,7 +673,7 @@ RAGGED_KINDS = {"served": (SERVED_CTX, 512),
                 "long": ([1, 16, 17, 1000, 8191, 300, 4097, None], 500)}
 # Geometries beyond the 8B's (query heads, kv heads, head_dim):
 # qwen2-7b-instruct's group of 7, llama3.2-1b-instruct's head_dim 64.
-RAGGED_GEOMETRIES = {"group7": (28, 4, 128), "hd64": (32, 8, 64)}
+RAGGED_GEOMETRIES = {"group7": (28, 4, 128), "hd64": HD64}
 
 
 def ragged_inputs(torch, dev, gen, dtype, kind, n_q=N_Q, n_kv=N_KV, hd=HD):
@@ -859,7 +923,10 @@ def shard_case(pa, torch, q, k, v, tables, ctx, q_pos, name: str,
 
     parts, errs = [], []
     for s in range(PG):
-        got, want = kernel(s), plain(s)
+        reset_counts()
+        got = kernel(s)
+        per_call = one_launch(f"{what} {name} shard {s}")
+        want = plain(s)
         torch.cuda.synchronize()
         errs.append(max(compare(g, w, name, f"{what} {name} shard {s} {field}")
                         for g, w, field in zip(got, want, ("acc", "m", "l"))))
@@ -876,18 +943,19 @@ def shard_case(pa, torch, q, k, v, tables, ctx, q_pos, name: str,
     merge_err = compare(merged, whole, name, f"{what} {name}: merge vs the unsplit kernel")
     wrong = drop_last_page(pa, q4, k, v, tables, ctx, q_start,
                            merged[:, None] if decode else merged, name, gate=gate_drop)
+    hd = q.shape[-1]
     shards = []
     for s in range(PG):
         keys, pairs, entries = owned_work(tables, ctx, q_start, q4.shape[1], s, pages_local)
-        rows = q.numel() // HD
+        rows = q.numel() // hd
         n_bytes = (q.numel() * q.element_size() + keys * 2 * token_bytes(k)
                    + q.numel() * 4 + 2 * rows * 4 + entries * 4
                    + q.shape[0] * 4 * (1 if decode else 2))
-        bound_ms, bound_by = bound(n_bytes, 4.0 * pairs * q.shape[-2] * HD, name)
+        bound_ms, bound_by = bound(n_bytes, 4.0 * pairs * q.shape[-2] * hd, name)
         lib_call, lib_check = library_partial(torch, q4, ks[s], vs[s], tables, ctx,
                                               q_start, s, pages_local)
         acc, m, l = parts[s]
-        shards.append({"ms": time_ms(lambda: kernel(s)),
+        shards.append({"ms": time_ms(lambda: kernel(s)), "cold_ms": cold_ms(lambda: kernel(s)),
                        "device_ms": device_ms(lambda: kernel(s), iters=10),
                        "host_ms": host_ms(lambda: kernel(s)),
                        "plain_ms": time_ms(lambda: plain(s), iters=3, warmup=1),
@@ -899,12 +967,17 @@ def shard_case(pa, torch, q, k, v, tables, ctx, q_pos, name: str,
                        "keys": keys, "max_abs_err": errs[s]})
         del lib_call, lib_check
     mean = {f: sum(x[f] for x in shards) / PG
-            for f in ("ms", "device_ms", "host_ms", "plain_ms", "library_ms", "bound_ms")}
+            for f in ("ms", "cold_ms", "device_ms", "host_ms", "plain_ms", "library_ms",
+                      "bound_ms")}
     b, n_q = q.shape[0], q.shape[-2]
     t, n_kv = q4.shape[1], ks[0].shape[1]
-    route = "cuda_core" if decode else pa.decode_route(q.dtype, HD, k.dtype)
-    splits = pa.chunk_plan(b, t, n_q, n_kv, HD, tables.shape[1]).splits
+    route = pa.decode_route(q.dtype, hd, k.dtype, partial=True)
+    if decode and route == "mma":
+        not_slower(mean["ms"], mean["library_ms"], f"{what} {name} {list(q.shape)}")
+    splits = (pa.decode_plan(b, n_q, n_kv, hd, tables.shape[1]) if decode
+              else pa.chunk_plan(b, t, n_q, n_kv, hd, tables.shape[1])).splits
     return {"route": route, "splits": splits if route == "mma" else 1,
+            "launches_per_call": per_call,
             "max_abs_err": max(errs), "merge_max_abs_err": merge_err, "tol": TOL[name],
             "q": list(q.shape), "kv_local": list(ks[0].shape),
             "foreign_pages_loaded": False,
@@ -947,17 +1020,26 @@ def partial_cases(pa, torch, q, k, v, tables, ctx, q_pos, name: str) -> dict:
 def phase_decode_partial(pa, torch) -> dict:
     """K4 on phase 2's decode inputs, whose live pages are drawn over the
     whole pool, cut into PG page shards of NUM_PAGES / PG pages: at the
-    served shape (B=8, 4 query heads over 1 kv head) and over all heads."""
+    served shape (B=8, 4 query heads over 1 kv head) and over all heads;
+    bf16 queries (the tensor-core kernel) also at head_dim 64 (``hd64``)."""
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(7)
     ctx = torch.tensor(DECODE_CTX, dtype=torch.int32, device=dev)
     result: dict = {"phase": "decode_partial_kernel", "page_shards": PG,
                     "ctx_lens": DECODE_CTX}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype, geo in ((torch.float32, None), (torch.bfloat16, None),
+                       (torch.bfloat16, "hd64")):
         name = str(dtype).split(".")[1]
-        k, v, tables = make_pool(gen, dtype, DECODE_CTX, dev)
-        q = torch.randn((B, N_Q, HD), generator=gen, device=dev).to(dtype)
-        result[name] = partial_cases(pa, torch, q, k, v, tables, ctx, None, name)
+        n_q, n_kv, hd = HD64 if geo else (N_Q, N_KV, HD)
+        k, v, tables = make_pool(gen, dtype, DECODE_CTX, dev, n_kv, hd)
+        q = torch.randn((B, n_q, hd), generator=gen, device=dev).to(dtype)
+        case = partial_cases(pa, torch, q, k, v, tables, ctx, None, name)
+        if geo:
+            result[name][geo] = {"heads": [n_q, n_kv], "head_dim": hd, **case}
+            result[name]["max_abs_err"] = max(result[name]["max_abs_err"],
+                                              case["max_abs_err"])
+        else:
+            result[name] = case
         del k, v
     return result
 
@@ -986,16 +1068,18 @@ def phase_chunk_partial(pa, torch) -> dict:
     ownership interleaves page by page), and on the verify input with each
     sequence's pages on one shard; at the served shape and over all heads.
     bf16 queries take the tensor-core kernel, f32 queries the CUDA-core
-    kernel."""
+    kernel; bf16 also on the verify input at head_dim 64 (``verify_hd64``)."""
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(8)
     result: dict = {"phase": "chunk_partial_kernel", "page_shards": PG}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
         cases = {}
-        for kind in ("prefill", "verify", "verify_one_shard"):
+        kinds = ("prefill", "verify", "verify_one_shard")
+        for kind in kinds + (("verify_hd64",) if dtype == torch.bfloat16 else ()):
+            geo = HD64 if kind.endswith("_hd64") else (N_Q, N_KV, HD)
             q, k, v, tables, ctx, pos, _ = chunk_inputs(
-                torch, dev, gen, dtype, kind.removesuffix("_one_shard"))
+                torch, dev, gen, dtype, kind.split("_")[0], geo)
             if kind.endswith("_one_shard"):
                 tables = one_shard_tables(tables, ctx)
             cases[kind] = partial_cases(pa, torch, q, k, v, tables, ctx, pos, name)
@@ -1504,20 +1588,25 @@ def template_args(name: str, kernel: str):
 
 # The CUDA-core kernel's instantiations for bf16 queries that the
 # tensor-core kernels replaced, by (kCausal, kPartial): chunk calls over
-# every pool type, decode calls and chunk partials over bf16 pools. No call
-# reaches them (K3 and K4 stay).
+# every pool type; decode calls (K1, and K3 over int8 pools), decode
+# partials (K4) and chunk partials over bf16 and int8 pools. Only bf16
+# queries over an f32 pool stay on the CUDA cores, outside chunk calls.
 REMOVED_BF16 = {("true", "false"): "chunk", ("false", "false"): "decode",
-                ("true", "true"): "chunk_partial"}
+                ("true", "true"): "chunk_partial", ("false", "true"): "decode_partial"}
 
 
 def removed_bf16(name: str):
     """Which removed instantiation a profiled kernel is ("chunk", "decode",
-    "chunk_partial"), or None."""
+    "decode_int8", "decode_partial", "chunk_partial"), or None."""
     args = template_args(name, "paged_attention_kernel")  # <TQ, TKV, kCausal, kPartial>
     if not args or args[0] != "__nv_bfloat16":
         return None
     kind = REMOVED_BF16.get(tuple(args[2:4]))
-    return kind if kind == "chunk" or args[1] == "__nv_bfloat16" else None
+    if kind == "chunk":
+        return kind
+    if args[1] == "float":
+        return None
+    return kind + ("_int8" if args[1] in INT8_ARGS else "")
 
 
 def kernel_class(name: str, int8_pools: bool = False) -> str:
@@ -1533,9 +1622,10 @@ def kernel_class(name: str, int8_pools: bool = False) -> str:
         return "chunk_attention" + ("_int8" if args[0] in INT8_ARGS else "")
     if "chunk_partial_mma_kernel<" in name:
         return "chunk_attention_partial"
-    args = template_args(name, "decode_attention_mma_kernel")  # <TKV, HD>
+    args = template_args(name, "decode_attention_mma_kernel")  # <TKV, HD, kPartial, Args>
     if args:
-        return "decode_attention" + ("_int8" if args[0] in INT8_ARGS else "")
+        return "decode_attention" + ("_partial" if args[2:3] == ["true"] else "") + (
+            "_int8" if args[0] in INT8_ARGS else "")
     if "chunk_merge_kernel<" in name:
         return "chunk_attention" + ("_int8" if int8_pools else "")
     if "qmm" in name:  # before the matmul test: the int8 weight kernel
@@ -1569,17 +1659,17 @@ def phase_profile(torch, weights: str = "bfloat16", overlap: bool = True) -> dic
         acc[0] += ms
         acc[1] += 1
         by_name[name] = by_name.get(name, 0.0) + ms
-    # The routes: bf16 chunk calls (and, over a bf16 pool, decode calls) on
-    # the tensor-core kernels; page-split chunk partials too; no call on a
-    # removed CUDA-core instantiation.
+    # The routes: bf16 chunk and decode calls on the tensor-core kernels,
+    # over bf16 and int8 pools; page-split chunk and decode partials too; no
+    # call on a removed CUDA-core instantiation.
     old = [n for n in by_name if removed_bf16(n)]
     if weights == "kv_split":
-        want = [("chunk_partial_mma_kernel<", "chunk_attention_partial")]
+        want = [("chunk_partial_mma_kernel<", "chunk_attention_partial"),
+                ("decode_attention_mma_kernel<", "decode_attention_partial")]
     else:
-        want = [("chunk_attention_mma_kernel<", "chunk_attention" + (
-            "_int8" if weights == "int8" else ""))]
-        if weights != "int8":
-            want.append(("decode_attention_mma_kernel<", "decode_attention"))
+        int8 = "_int8" if weights == "int8" else ""
+        want = [("chunk_attention_mma_kernel<", "chunk_attention" + int8),
+                ("decode_attention_mma_kernel<", "decode_attention" + int8)]
     missed = [cls for pat, cls in want
               if not any(pat in n and kernel_class(n, weights == "int8") == cls
                          for n in by_name)]
@@ -1614,9 +1704,9 @@ def phase_witness(torch, pa, weights: str, served: dict) -> dict:
     forward to the kernels under test made twice: the kernel, and its plain
     version on the same inputs (f32 throughout, rounded once), each call's
     result held against the other at TOL (fails beyond it). The calls: chunk
-    attention, and in bf16 decode attention (``models.llama``); on the
-    page-split mesh the chunk partial (``parallel.kv_split``), its (acc, m,
-    l) each. The first run serves the kernel's result, as the serving phase
+    and decode attention (``models.llama``); on the page-split mesh the
+    chunk and decode partials (``parallel.kv_split``), their (acc, m, l)
+    each. The first run serves the kernel's result, as the serving phase
     did; the second serves the plain version's, which shows how far the
     greedy streams of random weights move under the kernel's rounding
     alone. Each run records where its streams first differ from the
@@ -1634,12 +1724,17 @@ def phase_witness(torch, pa, weights: str, served: dict) -> dict:
         return pa.plain_paged_attention_partial(q, k, v, tables, ctx, pos[:, 0].contiguous(),
                                                 ps, shard, pages_local)
 
+    def plain_decode_partial(q, k, v, tables, ctx, shard, ps, pages_local):
+        acc, m, l = pa.plain_paged_attention_partial(q[:, None], k, v, tables, ctx, None, ps,
+                                                     shard, pages_local)
+        return acc[:, 0], m[:, 0], l[:, 0]
+
     if weights == "kv_split":
-        targets = [(kv_split, "paged_chunk_attention_partial", plain_partial)]
+        targets = [(kv_split, "paged_chunk_attention_partial", plain_partial),
+                   (kv_split, "paged_decode_attention_partial", plain_decode_partial)]
     else:
-        targets = [(llama, "paged_chunk_attention", plain_chunk)]
-        if weights != "int8":
-            targets.append((llama, "paged_decode_attention", plain_decode))
+        targets = [(llama, "paged_chunk_attention", plain_chunk),
+                   (llama, "paged_decode_attention", plain_decode)]
         if weights == "mixed":  # W1's launch, on the blocks' gathered tables
             targets.append((llama, "ragged_block_attention", plain_chunk))
     seen = {attr: {"calls": 0, "calls_beyond_tol": 0, "max_abs_err": 0.0, "finite": True}
@@ -1865,32 +1960,27 @@ def main() -> int:
     emit(phase_profile(torch, weights="kv_split"))
     emit(phase_witness(torch, pa, "kv_split", split))
 
-    src = "runbookai_tpu_torch/csrc/paged_attention.cu"
     mma_src = "runbookai_tpu_torch/csrc/chunk_attention.cu"
     dec_src = "runbookai_tpu_torch/csrc/decode_attention.cu"
     pallas = "runbookai_tpu/ops/paged_attention_pallas.py"
     fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    timing = ("device_ms", "host_ms", "splits")
+    timing = ("device_ms", "host_ms", "splits", "cold_ms")
     kernels = []
-    # K1 for bf16 queries over a bf16 pool: the tensor-core kernel, on the
-    # decode input and (under "served") the served contexts; f32 queries
-    # take the CUDA-core kernel.
-    main_path = dec["bfloat16"]
-    kernels.append({"name": "paged_decode_attention", "route": "cuda", "source": dec_src,
-                    "replaces": f"{pallas}:188",
-                    "launches": eng["launches"]["paged_decode_attention"],
-                    "max_abs_err": max(main_path["max_abs_err"],
-                                       main_path["served"]["max_abs_err"]),
-                    "f32_cuda_core_max_abs_err": dec["float32"]["max_abs_err"],
-                    **{f: main_path[f] for f in fields + timing},
-                    "served": {f: main_path["served"][f] for f in fields + timing}})
-    main_path = dec8["bfloat16"]
-    kernels.append({"name": "paged_decode_attention_int8", "route": "cuda", "source": src,
-                    "replaces": f"{pallas}:240",
-                    "launches": eng8["launches"]["paged_decode_attention_int8"],
-                    "max_abs_err": max(main_path["max_abs_err"],
-                                       dec8["float32"]["max_abs_err"]),
-                    **{f: main_path[f] for f in fields + timing}})
+    # K1 and K3 for bf16 queries: the tensor-core kernel over bf16 and int8
+    # pools, on the decode input, at head_dim 64 ("hd64") and, for K1, at
+    # the served contexts ("served"); f32 queries take the CUDA-core kernel.
+    for name, res, served, replaces in (
+            ("paged_decode_attention", dec, eng, f"{pallas}:188"),
+            ("paged_decode_attention_int8", dec8, eng8, f"{pallas}:240")):
+        main_path = res["bfloat16"]
+        subs = [x for x in ("served", "hd64") if x in main_path]
+        kernels.append({"name": name, "route": "cuda", "source": dec_src,
+                        "replaces": replaces, "launches": served["launches"][name],
+                        "max_abs_err": max(main_path["max_abs_err"],
+                                           *(main_path[x]["max_abs_err"] for x in subs)),
+                        "f32_cuda_core_max_abs_err": res["float32"]["max_abs_err"],
+                        **{f: main_path[f] for f in fields + timing},
+                        **{x: {f: main_path[x][f] for f in fields + timing} for x in subs}})
     # K2 for bf16 queries: the tensor-core kernel, over bf16 pools and over
     # int8 pools (whose T > 1 calls the JAX package serves on its XLA gather
     # path).
@@ -1929,12 +2019,12 @@ def main() -> int:
     # (one model group's heads over one page shard), the mean over both page
     # shards' calls; launches from engine_kv_split, one call per shard and
     # layer in every forward. library_ms: memory-efficient SDPA with its
-    # log-sum-exp over the shard's keys gathered beforehand.
-    # bf16 chunk partials run on chunk_attention.cu's tensor-core kernel
-    # (f32 queries on the CUDA-core kernel), K4 on the CUDA-core kernel.
-    part_fields = fields + ("device_ms", "host_ms")
+    # log-sum-exp over the shard's keys gathered beforehand. bf16 partials
+    # run on the tensor-core kernels (K4 decode_attention.cu's, the chunk
+    # partial chunk_attention.cu's), f32 queries on the CUDA-core kernel.
+    part_fields = fields + ("device_ms", "host_ms", "cold_ms")
     for name, res, replaces, source in (
-            ("paged_decode_attention_partial", decp, f"{pallas}:567", src),
+            ("paged_decode_attention_partial", decp, f"{pallas}:567", dec_src),
             # The JAX package runs T > 1 page-split attention on XLA.
             ("paged_chunk_attention_partial", chkp,
              "runbookai_tpu/parallel/kv_split.py:104", mma_src)):
@@ -1946,11 +2036,11 @@ def main() -> int:
                "f32_cuda_core_max_abs_err": res["float32"]["max_abs_err"],
                **{f: main_path[f] for f in part_fields}, "splits": main_path["splits"],
                "q": main_path["q"], "kv_local": main_path["kv_local"]}
-        for kind in ("verify", "verify_one_shard"):
+        for kind in ("verify", "verify_one_shard", "verify_hd64", "hd64"):
             if kind in res["bfloat16"]:
                 case = res["bfloat16"][kind]["served"]
                 row[kind] = {**{f: case[f] for f in part_fields}, "splits": case["splits"],
-                             "q": case["q"]}
+                             "q": case["q"], "max_abs_err": case["max_abs_err"]}
         kernels.append(row)
     # K5 per decode layer: the sum over its seven products at M=8 (and, under
     # "verify", at M=64), each timed on rotating layer slices.

@@ -1,7 +1,9 @@
 // Building blocks of the tensor-core attention kernels (chunk_attention.cu,
 // decode_attention.cu): cp.async copies, ldmatrix fragments, the bf16
 // mma.sync, P split into two bf16 parts, the XOR swizzle of bf16 K/V tiles,
-// and the copy of one 64-key K/V tile from a paged pool.
+// the keys of a tile (a run of table columns, or a page shard's owned pages),
+// the copy of one 64-key K/V tile from a paged pool and the widening of an
+// int8 tile to bf16.
 
 #pragma once
 
@@ -97,6 +99,17 @@ struct RunKeys {
   }
 };
 
+// Pool rows of a tile's keys j0 + key of a page shard's owned pages, listed
+// in table order as local page ids (the page-split partials).
+struct OwnedKeys {
+  const int* own_page;
+  int j0, n_keys, ps;
+  __device__ __forceinline__ long long operator()(int key) const {
+    const int j = j0 + key;
+    return j < n_keys ? static_cast<long long>(own_page[j / ps]) * ps + j % ps : -1;
+  }
+};
+
 // Start the cp.async copies of one 64-key K/V tile of kv head `kvh` into
 // `stage` (K tile, then V tile), in the pool's own type: key `key` is pool
 // row row_of(key), or zero-filled where that is negative (row_of then reads
@@ -135,13 +148,17 @@ __device__ __forceinline__ void load_kv_tile(const void* k, const void* v,
   }
 }
 
-// Widen a landed int8 K/V stage to the swizzled bf16 tiles (exact: |v| <= 127).
-template <int HD, int THREADS>
-__device__ __forceinline__ void widen_tile(const int8_t* stage, __nv_bfloat16* wide) {
+// Widen keys [key0, key0 + KEYS) of a landed int8 K/V stage to the swizzled
+// bf16 tiles (exact: |v| <= 127), by THREADS threads, `tid` the caller's
+// index among them: a whole tile by the block (widen_tile), or one warp's
+// own keys (decode_attention.cu).
+template <int HD, int THREADS, int KEYS>
+__device__ __forceinline__ void widen_keys(const int8_t* stage, __nv_bfloat16* wide, int key0,
+                                           int tid) {
   constexpr int kChunks = HD / 16;  // 16 int8 values a chunk
-  for (int i = threadIdx.x; i < 2 * kKeys * kChunks; i += THREADS) {
-    const int tile = i / (kKeys * kChunks), j = i % (kKeys * kChunks);
-    const int key = j / kChunks, ch = j % kChunks;
+  for (int i = tid; i < 2 * KEYS * kChunks; i += THREADS) {
+    const int tile = i / (KEYS * kChunks), j = i % (KEYS * kChunks);
+    const int key = key0 + j / kChunks, ch = j % kChunks;
     const int4 raw = *reinterpret_cast<const int4*>(stage + tile * kKeys * HD + key * HD + ch * 16);
     const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
     uint32_t w[8];
@@ -152,6 +169,12 @@ __device__ __forceinline__ void widen_tile(const int8_t* stage, __nv_bfloat16* w
     *reinterpret_cast<int4*>(dst + swz<HD>(key, 2 * ch)) = make_int4(w[0], w[1], w[2], w[3]);
     *reinterpret_cast<int4*>(dst + swz<HD>(key, 2 * ch + 1)) = make_int4(w[4], w[5], w[6], w[7]);
   }
+}
+
+// Widen a whole landed int8 K/V stage, by the block.
+template <int HD, int THREADS>
+__device__ __forceinline__ void widen_tile(const int8_t* stage, __nv_bfloat16* wide) {
+  widen_keys<HD, THREADS, kKeys>(stage, wide, 0, threadIdx.x);
 }
 
 }  // namespace

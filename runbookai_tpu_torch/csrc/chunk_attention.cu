@@ -415,16 +415,6 @@ struct PartialSmem {
   static int bytes(int cols) { return kFixed + 2 * cols * 4; }
 };
 
-// Pool rows of a tile's keys j0 + key of the owned pages' list.
-struct OwnedKeys {
-  const int* own_page;
-  int j0, n_keys, ps;
-  __device__ __forceinline__ long long operator()(int key) const {
-    const int j = j0 + key;
-    return j < n_keys ? static_cast<long long>(own_page[j / ps]) * ps + j % ps : -1;
-  }
-};
-
 // The page-split chunk partial: chunk_attention_mma_kernel's rows, tiles,
 // tensor-core steps and softmax over page shard a.shard's owned pages, each
 // key at its own position; (acc, m, l) out, the splits merged in the launch.

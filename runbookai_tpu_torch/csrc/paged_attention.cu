@@ -1,22 +1,20 @@
 // Ragged paged attention for the serving forward, hand-written for Hopper.
 //
-// Replaces the Pallas TPU kernels of runbookai_tpu/ops/paged_attention_pallas.py:
+// Replaces the Pallas TPU kernels of runbookai_tpu/ops/paged_attention_pallas.py
+// for f32 queries, and for bf16 queries over an f32 pool (bf16 queries over
+// bf16 and int8 pools take the tensor-core kernels of decode_attention.cu
+// and chunk_attention.cu):
 //
-//   rb_paged_decode_attention  <- paged_decode_attention (_decode_kernel), T = 1,
-//                                 for f32 queries or an f32 pool (bf16 queries
-//                                 over a bf16 pool take the tensor-core kernel
-//                                 of decode_attention.cu); over an int8 pool
+//   rb_paged_decode_attention  <- paged_decode_attention (_decode_kernel), T = 1;
+//                                 over an int8 pool (f32 queries only)
 //                                 <- _paged_decode_attention_int8
 //                                 (_decode_kernel_int8)
 //   rb_paged_chunk_attention   <- paged_chunk_attention  (_chunk_kernel),  T > 1,
-//                                 f32 queries only: bf16 queries take the
-//                                 tensor-core kernel of chunk_attention.cu
+//                                 f32 queries only
 //   rb_paged_decode_attention_partial <- paged_decode_attention_partial
 //                                 (_decode_kernel_partial): KV page-split serving
 //   rb_paged_chunk_attention_partial  <- the XLA _partial_flash of
-//                                 runbookai_tpu/parallel/kv_split.py (T > 1),
-//                                 for f32 queries or an f32 pool (bf16 over
-//                                 bf16 takes chunk_attention.cu)
+//                                 runbookai_tpu/parallel/kv_split.py (T > 1)
 //
 // The pool holds float32 or bfloat16 K/V, or int8 K/V with one float32 absmax
 // scale per (token, kv head) (runbookai_tpu_torch/ops/attention.py quantize_kv).
@@ -47,9 +45,11 @@
 //
 // What bounds it: both are memory-bound on an H100. The bytes that must move
 // are the K/V pages of each sequence's context (n_kv * hd * 2 * itemsize per
-// token, plus n_kv * 2 * 4 bytes of scales for an int8 pool) over 3.35 TB/s. This first version computes on CUDA cores in f32
-// from shared memory, with no tensor cores, TMA or split-K over pages; those
-// come later.
+// token, plus n_kv * 2 * 4 bytes of scales for an int8 pool) over 3.35 TB/s.
+// These kernels compute on CUDA cores in f32 from shared memory, with no
+// tensor cores, TMA or split-K over pages: they serve the f32 paths (f32
+// queries, as the tensor-parallel forward of chip_smoke.py runs them, and
+// f32 pools).
 //
 // The partial kernels (template flag kPartial) run the same page walk over
 // one page shard's slice of the pool: page tables hold GLOBAL page ids, page
@@ -281,20 +281,13 @@ int dispatch(const Args& a, int B, int threads, int q_dtype, int kv_dtype, cudaS
     if (q_dtype == kF32 && kv_dtype == kI8)
       return launch<float, int8_t, kCausal, false>(a, B, threads, stream);
   }
-  // bf16 queries over a bf16 pool take the tensor-core kernels (chunk calls
-  // and the chunk partial chunk_attention.cu, decode decode_attention.cu),
-  // except K4: of those, only the decode partial is instantiated here.
+  // bf16 queries over bf16 and int8 pools take the tensor-core kernels
+  // (chunk calls and the chunk partial chunk_attention.cu; decode calls, K3
+  // and K4 decode_attention.cu); over an f32 pool, decode calls and both
+  // partials stay here.
   if constexpr (!kCausal || kPartial) {
     if (q_dtype == kBF16 && kv_dtype == kF32)
       return launch<__nv_bfloat16, float, kCausal, kPartial>(a, B, threads, stream);
-  }
-  if constexpr (!kCausal && kPartial) {
-    if (q_dtype == kBF16 && kv_dtype == kBF16)
-      return launch<__nv_bfloat16, __nv_bfloat16, false, true>(a, B, threads, stream);
-  }
-  if constexpr (!kCausal && !kPartial) {
-    if (q_dtype == kBF16 && kv_dtype == kI8)
-      return launch<__nv_bfloat16, int8_t, false, false>(a, B, threads, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -49,9 +49,12 @@ SIGNATURES = {
     "rb_paged_chunk_attention_partial_mma": [_p] * 11 + [_i] * 12 + [_f, _p],
     # acc, m, l, out, splits, n_rows, hd, out_dtype, stream
     "rb_paged_chunk_merge": [_p] * 4 + [_i, ctypes.c_longlong, _i, _i, _p],
-    # q, k, v, tables, ctx_lens, out, ws, counters, B, n_q, n_kv, hd, ps, P,
-    # splits, cols, scale, stream
-    "rb_paged_decode_attention_mma": [_p] * 8 + [_i] * 8 + [_f, _p],
+    # q, k, v, k_scale, v_scale, tables, ctx_lens, out, ws, counters, B, n_q,
+    # n_kv, hd, ps, P, splits, cols, scale, kv_dtype, stream
+    "rb_paged_decode_attention_mma": [_p] * 10 + [_i] * 8 + [_f, _i, _p],
+    # q, k, v, tables, ctx_lens, acc, m, l, ws, counters, B, n_q, n_kv, hd, ps,
+    # P, splits, cols, shard, pages_local, scale, stream
+    "rb_paged_decode_attention_partial_mma": [_p] * 10 + [_i] * 10 + [_f, _p],
     # x, q, s, out, partial, M, K, N, k_split, x_dtype, stream
     "rb_qmm_int8": [_p] * 5 + [_i] * 5 + [_p],
 }

@@ -6,7 +6,7 @@ CUDA kernels (``csrc/paged_attention.cu``, ``csrc/chunk_attention.cu``,
 
 - :func:`paged_decode_attention` — one query token per sequence (T = 1);
   replaces Pallas ``paged_decode_attention`` and, over an int8 pool, its
-  ``_paged_decode_attention_int8``. bf16 queries over a bf16 pool
+  ``_paged_decode_attention_int8``. bf16 queries over a bf16 or int8 pool
   (:func:`decode_route`) take the tensor-core kernel of
   ``decode_attention.cu``, split over page-table columns as
   :func:`decode_plan` says and merged in the same launch; the rest take the
@@ -26,7 +26,9 @@ CUDA kernels (``csrc/paged_attention.cu``, ``csrc/chunk_attention.cu``,
 - :func:`paged_decode_attention_partial` — the decode kernel over one page
   shard's slice of the pool, returning the un-normalised flash partials
   ``(acc, m, l)`` for the merge across page shards; replaces Pallas
-  ``paged_decode_attention_partial``.
+  ``paged_decode_attention_partial``. bf16 queries over a bf16 slice take
+  the tensor-core decode kernel over the shard's own pages, split as
+  :func:`decode_plan` says and merged in the same launch.
 - :func:`paged_chunk_attention_partial` — the same for T > 1; replaces the
   XLA ``_partial_flash`` of ``runbookai_tpu/parallel/kv_split.py``. bf16
   queries over a bf16 slice take the tensor-core chunk partial of
@@ -287,7 +289,7 @@ def paged_decode_attention(
     stream = torch.cuda.current_stream(q.device).cuda_stream
     name = "paged_decode_attention" + ("_int8" if ks is not None else "")
     if decode_route(q.dtype, hd, k.dtype) == "mma":
-        _decode_mma(q, k, v, page_tables, ctx_lens, page_size, out, stream)
+        _decode_mma(q, k, v, ks, vs, page_tables, ctx_lens, page_size, out, stream)
     else:
         rc = library().rb_paged_decode_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(ks), _ptr(vs),
@@ -299,20 +301,25 @@ def paged_decode_attention(
     return out
 
 
-def decode_route(q_dtype: torch.dtype, hd: int, pool_dtype: torch.dtype) -> str:
-    """The kernel a decode call, or a page-split chunk partial, on CUDA
-    tensors launches, decided before the launch: ``"mma"`` (the tensor-core
-    kernels, ``decode_attention.cu`` and ``chunk_attention.cu``) for bf16
-    queries with head_dim 64 or 128 over a bf16 pool; ``"cuda_core"``
-    (``paged_attention.cu``) for f32 queries, an f32 pool, and bf16 queries
-    over an int8 pool (K3); any other call raises."""
-    if chunk_mma_eligible(q_dtype, hd) and pool_dtype == torch.bfloat16:
+def decode_route(q_dtype: torch.dtype, hd: int, pool_dtype: torch.dtype,
+                 partial: bool = False) -> str:
+    """The kernel a decode call (or, with ``partial``, a page-split decode
+    or chunk partial) on CUDA tensors launches, decided before the launch:
+    ``"mma"`` (the tensor-core kernels: ``decode_attention.cu`` for decode
+    calls, K3 and K4; ``chunk_attention.cu`` for the chunk partial) for bf16
+    queries with head_dim 64 or 128 over a bf16 pool, or an int8 pool
+    outside the page split; ``"cuda_core"`` (``paged_attention.cu``) for f32
+    queries and for f32 pools; any other call raises, and so does a partial
+    over an int8 pool (the page split refuses int8 KV)."""
+    if partial and pool_dtype == torch.int8:
+        raise ValueError("the page-split partials take no int8 pools")
+    if chunk_mma_eligible(q_dtype, hd) and pool_dtype in (torch.bfloat16, torch.int8):
         return "mma"
-    if q_dtype == torch.float32 or (q_dtype == torch.bfloat16
-                                    and pool_dtype in (torch.float32, torch.int8)):
+    if q_dtype == torch.float32 or (q_dtype == torch.bfloat16 and pool_dtype == torch.float32):
         return "cuda_core"
     raise ValueError(f"no decode kernel takes {q_dtype} queries with head_dim {hd} over "
-                     f"a {pool_dtype} pool: bf16 over bf16 needs head_dim 64 or 128")
+                     f"a {pool_dtype} pool: bf16 queries over bf16 or int8 pools need "
+                     f"head_dim 64 or 128")
 
 
 # At least this many table columns (one 64-key tile of 16-token pages) a
@@ -364,24 +371,34 @@ def _split_workspace(device: torch.device, stream: int, n_counters: int, n_float
     return counters, ws
 
 
-def _decode_mma(q, k, v, page_tables, ctx_lens, page_size, out, stream):
-    """The tensor-core decode kernel, one launch, into ``out``."""
+def _decode_launch_plan(q, k, v, page_tables, stream):
+    """Checks of a tensor-core decode call, its :func:`decode_plan` and, when
+    split, the stream's (counters, workspace)."""
     b, n_q, hd = q.shape
-    n_kv, p = k.shape[1], page_tables.shape[1]
+    n_kv = k.shape[1]
     if n_q // n_kv > 16:
         raise ValueError(f"the bf16 decode kernel takes GQA groups of at most 16 query "
                          f"heads, not {n_q // n_kv}")
     if any(x.data_ptr() % 16 for x in (q, k, v)):
         raise ValueError("the bf16 decode kernel needs q and the pools 16-byte aligned")
-    plan = decode_plan(b, n_q, n_kv, hd, p)
+    plan = decode_plan(b, n_q, n_kv, hd, page_tables.shape[1])
     counters = ws = None
     if plan.splits > 1:
         counters, ws = _split_workspace(q.device, stream, b * n_kv, plan.workspace_floats)
+    return plan, counters, ws
+
+
+def _decode_mma(q, k, v, ks, vs, page_tables, ctx_lens, page_size, out, stream):
+    """The tensor-core decode kernel (K1, or K3 over an int8 pool), one
+    launch, into ``out``."""
+    plan, counters, ws = _decode_launch_plan(q, k, v, page_tables, stream)
+    b, n_q, hd = q.shape
     rc = library().rb_paged_decode_attention_mma(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), page_tables.data_ptr(),
-        ctx_lens.data_ptr(), out.data_ptr(), _ptr(ws), _ptr(counters), b, n_q, n_kv, hd,
-        page_size, p, plan.splits, plan.cols, 1.0 / math.sqrt(hd), stream)
-    raise_on(rc, "paged_decode_attention")
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(ks), _ptr(vs), page_tables.data_ptr(),
+        ctx_lens.data_ptr(), out.data_ptr(), _ptr(ws), _ptr(counters), b, n_q, k.shape[1],
+        hd, page_size, page_tables.shape[1], plan.splits, plan.cols, 1.0 / math.sqrt(hd),
+        _DTYPE_CODES[k.dtype], stream)
+    raise_on(rc, "paged_decode_attention" + ("_int8" if ks is not None else ""))
 
 
 def chunk_q_block(n_q: int, n_kv: int, t: int) -> int:
@@ -631,8 +648,9 @@ def paged_decode_attention_partial(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Decode attention over page shard ``my_pg``'s slice of the pool (global
     page g lives on shard ``g // pages_local``, at local page ``g - my_pg *
-    pages_local``). Pages of other shards are skipped. Returns the flash
-    partials ``(acc [B, n_q, hd], m [B, n_q], l [B, n_q])`` in f32."""
+    pages_local``). Pages of other shards are never loaded. Returns the flash
+    partials ``(acc [B, n_q, hd], m [B, n_q], l [B, n_q])`` in f32. On CUDA
+    tensors the kernel is chosen by :func:`decode_route`."""
     if q.device.type == "cpu":
         acc, m, l = plain_paged_attention_partial(
             q[:, None], k_local, v_local, page_tables, ctx_lens, None, page_size,
@@ -641,15 +659,24 @@ def paged_decode_attention_partial(
     _check_partial(q, k_local, v_local, page_tables, ctx_lens, page_size, my_pg,
                    pages_local)
     b, n_q, hd = q.shape
+    n_kv, p = k_local.shape[1], page_tables.shape[1]
     acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     m = torch.empty((b, n_q), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
-    rc = library().rb_paged_decode_attention_partial(
-        q.data_ptr(), k_local.data_ptr(), v_local.data_ptr(), page_tables.data_ptr(),
-        ctx_lens.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-        b, n_q, k_local.shape[1], hd, page_size, page_tables.shape[1], my_pg,
-        pages_local, 1.0 / math.sqrt(hd), _DTYPE_CODES[q.dtype],
-        _DTYPE_CODES[k_local.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if decode_route(q.dtype, hd, k_local.dtype, partial=True) == "mma":
+        plan, counters, ws = _decode_launch_plan(q, k_local, v_local, page_tables, stream)
+        rc = library().rb_paged_decode_attention_partial_mma(
+            q.data_ptr(), k_local.data_ptr(), v_local.data_ptr(), page_tables.data_ptr(),
+            ctx_lens.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(), _ptr(ws),
+            _ptr(counters), b, n_q, n_kv, hd, page_size, p, plan.splits, plan.cols, my_pg,
+            pages_local, 1.0 / math.sqrt(hd), stream)
+    else:
+        rc = library().rb_paged_decode_attention_partial(
+            q.data_ptr(), k_local.data_ptr(), v_local.data_ptr(), page_tables.data_ptr(),
+            ctx_lens.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+            b, n_q, n_kv, hd, page_size, p, my_pg, pages_local, 1.0 / math.sqrt(hd),
+            _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_local.dtype], stream)
     raise_on(rc, "paged_decode_attention_partial")
     launches["paged_decode_attention_partial"] += 1
     return acc, m, l
@@ -677,7 +704,7 @@ def paged_chunk_attention_partial(
     b, t, n_q, hd = q.shape
     n_kv, p = k_local.shape[1], page_tables.shape[1]
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if decode_route(q.dtype, hd, k_local.dtype) == "mma":
+    if decode_route(q.dtype, hd, k_local.dtype, partial=True) == "mma":
         # The kernel reads each row's first position from [B, T] itself.
         q_positions = q_positions.contiguous()
         _check_partial(q, k_local, v_local, page_tables, ctx_lens, page_size, my_pg,

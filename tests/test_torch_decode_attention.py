@@ -23,6 +23,7 @@ import torch
 
 from runbookai_tpu.ops import paged_attention_pallas as jpallas
 from runbookai_tpu_torch.ops import paged_attention as tpa
+from runbookai_tpu_torch.ops.attention import quantize_kv
 
 ROOT = Path(__file__).resolve().parent.parent
 TOL = dict(rtol=2e-5, atol=2e-5)  # test_pallas_kernel.py:41
@@ -39,22 +40,35 @@ def _t(x):
 # ---------------------------------------------------------------- routing
 
 
-@pytest.mark.parametrize("q_dtype,hd,pool,route", [
-    (torch.bfloat16, 128, torch.bfloat16, "mma"), (torch.bfloat16, 64, torch.bfloat16, "mma"),
-    (torch.float32, 128, torch.bfloat16, "cuda_core"),
-    (torch.float32, 128, torch.float32, "cuda_core"),
-    (torch.float32, 16, torch.int8, "cuda_core"),
-    (torch.bfloat16, 128, torch.int8, "cuda_core"),  # K3
-    (torch.bfloat16, 128, torch.float32, "cuda_core"),
-    (torch.bfloat16, 96, torch.bfloat16, None), (torch.bfloat16, 16, torch.bfloat16, None),
-    (torch.float16, 128, torch.float16, None),
+@pytest.mark.parametrize("q_dtype,hd,pool,partial,route", [
+    (torch.bfloat16, 128, torch.bfloat16, False, "mma"),
+    (torch.bfloat16, 64, torch.bfloat16, False, "mma"),
+    (torch.float32, 128, torch.bfloat16, False, "cuda_core"),
+    (torch.float32, 128, torch.float32, False, "cuda_core"),
+    (torch.float32, 16, torch.int8, False, "cuda_core"),
+    (torch.bfloat16, 128, torch.int8, False, "mma"),  # K3
+    (torch.bfloat16, 64, torch.int8, False, "mma"),
+    (torch.bfloat16, 16, torch.int8, False, None),
+    (torch.bfloat16, 128, torch.float32, False, "cuda_core"),
+    (torch.bfloat16, 96, torch.bfloat16, False, None),
+    (torch.bfloat16, 16, torch.bfloat16, False, None),
+    (torch.float16, 128, torch.float16, False, None),
+    # The page-split partials (K4 and the chunk partial): bf16 over a bf16
+    # slice on the tensor cores, f32 on the CUDA cores, no int8 pools.
+    (torch.bfloat16, 128, torch.bfloat16, True, "mma"),
+    (torch.bfloat16, 64, torch.bfloat16, True, "mma"),
+    (torch.float32, 128, torch.bfloat16, True, "cuda_core"),
+    (torch.bfloat16, 128, torch.float32, True, "cuda_core"),
+    (torch.bfloat16, 16, torch.bfloat16, True, None),
+    (torch.bfloat16, 128, torch.int8, True, None),
+    (torch.float32, 128, torch.int8, True, None),
 ])
-def test_decode_route(q_dtype, hd, pool, route):
+def test_decode_route(q_dtype, hd, pool, partial, route):
     if route is None:
         with pytest.raises(ValueError):
-            tpa.decode_route(q_dtype, hd, pool)
+            tpa.decode_route(q_dtype, hd, pool, partial=partial)
     else:
-        assert tpa.decode_route(q_dtype, hd, pool) == route
+        assert tpa.decode_route(q_dtype, hd, pool, partial=partial) == route
 
 
 # ------------------------------------------------------------------- plan
@@ -110,23 +124,41 @@ def test_decode_plan_at_the_engine_shapes():
 # ---------------------------------------------- the kernel emulated in f32
 
 
-def emulate_decode(q, k, v, tables, ctx, page_size, cols):
+def emulate_decode(q, k, v, tables, ctx, page_size, cols, scales=None, shard=None,
+                   pages_local=None):
     """What ``decode_attention_mma_kernel`` computes, in f32: for each
     (sequence, kv head) and each split of ``cols`` table columns that starts
-    below ceil(ctx / ps), 64-key tiles whose 16-key slices go to four warps,
-    each with its own online softmax in log2 units; the warps combined in
-    warp order; one live split normalised, several merged in split order.
-    Returns the output [B, n_q, hd] and every split's partial ``(acc, m, l)``
-    (m in natural-log units), ``(0, -1e30, 0)`` where the kernel's block
-    exits before loading."""
+    below ceil(ctx / ps), the split's keys in 64-key tiles whose 16-key
+    slices go to four warps, each with its own online softmax in log2 units;
+    the warps combined in warp order; one live split written as it is,
+    several merged in split order (log2 units) by the last to finish.
+
+    - K1 (the default): the keys are the split's run of positions below ctx;
+      the output is normalised.
+    - int8 mode (``scales = (k_scale, v_scale)``, ``k`` and ``v`` the int8
+      values): the values widened, each score column multiplied by its
+      key's k scale after Q K^T, and its v scale folded into P.
+    - owned-page mode (K4: ``shard`` and ``pages_local``, ``k`` and ``v``
+      the shard's slice): a split's keys are the offsets of its owned
+      columns' local pages, the columns listed in table order, cut at ctx;
+      the output is the un-normalised (acc, m in natural-log units, l), a
+      row with no owned key (0, -1e30, 0).
+
+    Returns the output ([B, n_q, hd], or ``(acc, m, l)`` in owned-page
+    mode) and every split's partial ``(acc, m, l)`` (m in natural-log
+    units), ``(0, -1e30, 0)`` where the kernel's block exits before loading
+    or owns no key."""
     b, n_q, hd = q.shape
     n_kv = k.shape[1]
     group, p = n_q // n_kv, tables.shape[1]
     splits = -(-p // cols)
     scale_log2 = 1.0 / math.sqrt(hd) / math.log(2.0)
-    out = torch.zeros(b, n_q, hd)
+    owned = shard is not None
+    out = (torch.zeros(b, n_q, hd), torch.full((b, n_q), NEG_INF), torch.zeros(b, n_q)) \
+        if owned else torch.zeros(b, n_q, hd)
     parts = (torch.zeros(splits, b, n_q, hd), torch.full((splits, b, n_q), NEG_INF),
              torch.zeros(splits, b, n_q))
+    ln = lambda m2, den: torch.where(den > 0, m2 * math.log(2.0), NEG_INF)  # noqa: E731
     for i in range(b):
         hi = max(0, min(int(ctx[i]), p * page_size))
         n_cols = -(-hi // page_size)
@@ -136,28 +168,47 @@ def emulate_decode(q, k, v, tables, ctx, page_size, cols):
             qg = q[i, heads].float()
             live_parts = []
             for s in range(n_live):
-                lo = s * cols * page_size
-                end = min(hi, lo + cols * page_size)
+                if owned:  # the owned columns of the split, in table order
+                    run = [c for c in range(s * cols, min((s + 1) * cols, n_cols))
+                           if int(tables[i, c]) // pages_local == shard]
+                    offs = torch.arange(page_size)
+                    pos = torch.cat([c * page_size + offs for c in run] or [offs[:0]])
+                    rows = torch.cat([(int(tables[i, c]) - shard * pages_local) * page_size
+                                      + offs for c in run] or [offs[:0]])
+                    assert torch.all((rows >= 0) & (rows < pages_local * page_size))
+                    rows = rows[pos < hi]  # only the last column is cut: a prefix
+                else:
+                    pos = torch.arange(s * cols * page_size,
+                                       min(hi, (s + 1) * cols * page_size))
+                    rows = tables[i, pos // page_size].long() * page_size + pos % page_size
+                n_keys = len(rows)
                 wm = torch.full((WARPS, group), NEG_INF)
                 wl = torch.zeros(WARPS, group)
                 wo = torch.zeros(WARPS, group, hd)
-                for it in range(-(-(end - lo) // KEYS)):
+                for it in range(-(-n_keys // KEYS)):
                     for w in range(WARPS):
-                        key0 = lo + it * KEYS + WARP_KEYS * w
-                        if key0 >= end:
+                        j0 = it * KEYS + WARP_KEYS * w
+                        if j0 >= n_keys:
                             continue
-                        pos = torch.arange(key0, key0 + WARP_KEYS)
-                        live = pos < end
-                        rows = (tables[i, pos[live] // page_size].long() * page_size
-                                + pos[live] % page_size)
+                        live = torch.arange(j0, j0 + WARP_KEYS) < n_keys
+                        r = rows[j0:j0 + WARP_KEYS]
                         kk = torch.zeros(WARP_KEYS, hd)
                         vv = torch.zeros(WARP_KEYS, hd)
-                        kk[live], vv[live] = k[rows, kvh].float(), v[rows, kvh].float()
-                        x = torch.where(live, (qg @ kk.T) * scale_log2, NEG_INF)
+                        kk[live], vv[live] = k[r, kvh].float(), v[r, kvh].float()
+                        x = (qg @ kk.T) * scale_log2
+                        if scales is not None:  # k scale on the score columns
+                            ksc = torch.zeros(WARP_KEYS)
+                            ksc[live] = scales[0][r, kvh]
+                            x = x * ksc
+                        x = torch.where(live, x, NEG_INF)
                         m_new = torch.maximum(wm[w], x.amax(-1))
                         alpha = torch.exp2(wm[w] - m_new)
                         pr = torch.where(live, torch.exp2(x - m_new[:, None]), 0.0)
                         wl[w] = wl[w] * alpha + pr.sum(-1)
+                        if scales is not None:  # v scale folded into P
+                            vsc = torch.zeros(WARP_KEYS)
+                            vsc[live] = scales[1][r, kvh]
+                            pr = pr * vsc
                         wo[w] = wo[w] * alpha[:, None] + pr @ vv
                         wm[w] = m_new
                 mx = wm.amax(0)
@@ -165,17 +216,22 @@ def emulate_decode(q, k, v, tables, ctx, page_size, cols):
                 acc = (wo * cw[..., None]).sum(0)
                 den = (wl * cw).sum(0)
                 live_parts.append((acc, mx, den))
-                parts[0][s, i, heads], parts[1][s, i, heads] = acc, mx * math.log(2.0)
+                parts[0][s, i, heads], parts[1][s, i, heads] = acc, ln(mx, den)
                 parts[2][s, i, heads] = den
             if n_live == 1:
-                acc, _, den = live_parts[0]
-                out[i, heads] = acc / den.clamp_min(1e-30)[:, None]
+                acc, mx, den = live_parts[0]
             elif n_live > 1:  # the last block to finish: weights, then sums, in split order
                 m_all = torch.stack([mx for _, mx, _ in live_parts])
-                wt = torch.exp2(m_all - m_all.amax(0))
-                den = sum(d * w for (_, _, d), w in zip(live_parts, wt)).clamp_min(1e-30)
+                mx = m_all.amax(0)
+                wt = torch.exp2(m_all - mx)
+                den = sum(d * w for (_, _, d), w in zip(live_parts, wt))
                 acc = sum(a * w[:, None] for (a, _, _), w in zip(live_parts, wt))
-                out[i, heads] = acc / den[:, None]
+            else:
+                continue
+            if owned:
+                out[0][i, heads], out[1][i, heads], out[2][i, heads] = acc, ln(mx, den), den
+            else:
+                out[i, heads] = acc / den.clamp_min(1e-30)[:, None]
     return out, parts
 
 
@@ -225,6 +281,142 @@ def test_decode_split_path_equals_plain_and_pallas(group, cols):
         assert torch.all(parts[2][:first_dead, i] > 0)
 
 
+# ------------------------------------------------ K3: over an int8 pool
+
+
+def _int8_pools(k, v):
+    """The port's int8 pools of f32 K and V: ((values, scales), (values, scales))."""
+    return quantize_kv(_t(k)), quantize_kv(_t(v))
+
+
+@pytest.mark.parametrize("group,cols", [(1, None), (3, None), (4, None), (7, 20), (8, 1),
+                                        (4, 41)])
+def test_decode_int8_split_path_equals_plain_and_pallas(group, cols):
+    """K3: the int8 values widened, k scales on the score columns and v
+    scales folded into P, in the same split walk as K1; against the plain
+    version (which dequantizes first) and Pallas ``_paged_decode_attention_int8``
+    in interpret mode. ``None`` takes ``decode_plan``'s columns."""
+    rng = np.random.default_rng(120 + group + (cols or 0))
+    q, k, v, tables, ctx = _inputs(rng, group)
+    if cols is None:
+        cols = tpa.decode_plan(len(ctx), q.shape[1], N_KV, HD, MAX_PAGES + 1).cols
+    kq, vq = _int8_pools(k, v)
+    assert kq[0].dtype == torch.int8 and kq[1].shape == (NUM_PAGES * PS, N_KV)
+    got, parts = emulate_decode(_t(q), kq[0], vq[0], _t(tables), _t(ctx), PS, cols,
+                                scales=(kq[1], vq[1]))
+    want = tpa.plain_paged_attention(_t(q)[:, None], kq, vq, _t(tables), _t(ctx), None,
+                                     PS)[:, 0]
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+    assert torch.all(got[0] == 0)  # ctx 0
+    pallas = np.asarray(jpallas.paged_decode_attention(
+        jnp.asarray(q), (jnp.asarray(kq[0].numpy()), jnp.asarray(kq[1].numpy())),
+        (jnp.asarray(vq[0].numpy()), jnp.asarray(vq[1].numpy())), jnp.asarray(tables),
+        jnp.asarray(ctx), page_size=PS, interpret=True))
+    np.testing.assert_allclose(got.numpy(), pallas, **TOL)
+    merged = tpa.merge_partials(list(zip(*parts)), torch.device("cpu"))
+    np.testing.assert_allclose(merged.numpy(), want.numpy(), **TOL)
+    # A scale left off either side moves the result beyond TOL.
+    for sc in ((torch.ones_like(kq[1]), vq[1]), (kq[1], torch.ones_like(vq[1]))):
+        wrong, _ = emulate_decode(_t(q), kq[0], vq[0], _t(tables), _t(ctx), PS, cols,
+                                  scales=sc)
+        assert np.abs(wrong.numpy() - want.numpy()).max() > 1e-2
+
+
+# ------------------------------------- K4: over a page shard's own pages
+
+
+SHARDS = 2
+LOCAL = NUM_PAGES // SHARDS
+
+
+def _shard_tables(rng, ctx):
+    """Tables over both shards' pages, distinct per sequence: sequence 6 lies
+    on shard 1 alone (shard 0 owns none of its keys); the full-table
+    sequence 7 puts columns 0-7 on shard 1 and 8-15 on shard 0, so that a
+    split of at most 8 columns sees only the other shard's pages there; the
+    rest draw from both shards at random. Entries past ctx are random pages,
+    the trash column page 0."""
+    free = [list(rng.permutation(np.arange(max(1, s * LOCAL), (s + 1) * LOCAL)))
+            for s in range(SHARDS)]
+    tables = rng.integers(1, NUM_PAGES, size=(len(ctx), MAX_PAGES + 1)).astype(np.int32)
+    tables[:, MAX_PAGES] = 0
+    for i, c in enumerate(ctx):
+        for col in range(-(-int(c) // PS)):
+            if i == 6:
+                s = 1
+            elif i == 7 and col < 16:
+                s = 1 if col < 8 else 0
+            else:
+                s = int(rng.integers(SHARDS)) if free[0] and free[1] else int(not free[0])
+            tables[i, col] = free[s].pop()
+    return tables
+
+
+@pytest.mark.parametrize("group,cols", [(1, None), (3, None), (4, None), (7, 4), (8, 1),
+                                        (4, 41)])
+def test_decode_partial_owned_pages_equals_plain_and_pallas(group, cols):
+    """K4 on each of two page shards: the owned columns of each split listed
+    in table order, tiles of four owned pages, (acc, m, l) combined in split
+    order; against the plain partial and Pallas
+    ``paged_decode_attention_partial`` in interpret mode. Rows with no owned
+    key, and splits whose live columns are all foreign, give exactly
+    (0, -1e30, 0). ``None`` takes ``decode_plan``'s columns."""
+    rng = np.random.default_rng(140 + group + (cols or 0))
+    q, k, v, _, ctx = _inputs(rng, group)
+    tables = _shard_tables(rng, ctx)
+    if cols is None:
+        cols = tpa.decode_plan(len(ctx), q.shape[1], N_KV, HD, MAX_PAGES + 1).cols
+    for shard in range(SHARDS):
+        sl = slice(shard * LOCAL * PS, (shard + 1) * LOCAL * PS)
+        (acc, m, l), parts = emulate_decode(_t(q), _t(k[sl]), _t(v[sl]), _t(tables), _t(ctx),
+                                            PS, cols, shard=shard, pages_local=LOCAL)
+        plain = tpa.paged_decode_attention_partial(_t(q), _t(k[sl]), _t(v[sl]), _t(tables),
+                                                   _t(ctx), shard, PS, LOCAL)
+        pallas = jpallas.paged_decode_attention_partial(
+            jnp.asarray(q), jnp.asarray(k[sl]), jnp.asarray(v[sl]), jnp.asarray(tables),
+            jnp.asarray(ctx), jnp.int32(shard), page_size=PS, pages_local=LOCAL,
+            interpret=True)
+        for got, w_plain, w_pallas in zip((acc, m, l), plain, pallas):
+            np.testing.assert_allclose(got.numpy(), w_plain.numpy(), **TOL)
+            np.testing.assert_allclose(got.numpy(), np.asarray(w_pallas), **TOL)
+        # No owned key: exactly (0, -1e30, 0), after the conversion to ln.
+        empty = [0] + ([6] if shard == 0 else [])
+        for i in empty:
+            assert torch.all(acc[i] == 0) and torch.all(l[i] == 0)
+            assert torch.all(m[i] == NEG_INF)
+        # A live split whose columns are all foreign writes (0, -1e30, 0).
+        foreign = range(0, 8) if shard == 0 else range(8, 16)
+        for s in range(-(-(MAX_PAGES + 1) // cols)):
+            run = range(s * cols, min((s + 1) * cols, MAX_PAGES))
+            if len(run) and set(run) <= set(foreign):
+                assert torch.all(parts[2][s, 7] == 0) and torch.all(parts[1][s, 7] == NEG_INF)
+                assert torch.all(parts[0][s, 7] == 0)
+        assert torch.all(l[7] > 0) and torch.all(l[5] >= 0)
+    # Both shards' partials merged give K1 on the whole pool.
+    whole = tpa.plain_paged_attention(_t(q)[:, None], _t(k), _t(v), _t(tables), _t(ctx),
+                                      None, PS)[:, 0]
+    halves = [emulate_decode(_t(q), _t(k[sl]), _t(v[sl]), _t(tables), _t(ctx), PS, cols,
+                             shard=s, pages_local=LOCAL)[0]
+              for s, sl in enumerate((slice(0, LOCAL * PS), slice(LOCAL * PS, None)))]
+    np.testing.assert_allclose(tpa.merge_partials(halves, torch.device("cpu")).numpy(),
+                               whole.numpy(), **TOL)
+
+
+def test_decode_partial_cuts_only_the_last_column():
+    """The live keys of a K4 block are a prefix of its owned keys: only the
+    column of position ctx - 1 can be cut short, and it is the last column
+    below ctx, so when the shard owns it, it is the last in the list."""
+    rng = np.random.default_rng(150)
+    for _ in range(200):
+        n_cols = int(rng.integers(1, 30))
+        ctx = (n_cols - 1) * PS + int(rng.integers(1, PS + 1))
+        owned = rng.random(n_cols) < 0.5
+        pos = [c * PS + o for c in np.flatnonzero(owned) for o in range(PS)]
+        live = [x < ctx for x in pos]
+        assert live == sorted(live, reverse=True)  # True... then False...
+        assert sum(live) == len(pos) - (n_cols * PS - ctx if owned[-1] else 0)
+
+
 def test_decode_wrapper_on_cpu_is_the_plain_version():
     rng = np.random.default_rng(97)
     q, k, v, tables, ctx = _inputs(rng, 4)
@@ -242,13 +434,20 @@ def test_chip_smoke_classes_the_decode_kernels():
     import chip_smoke
 
     ns = "void (anonymous namespace)::"
-    new = ns + "decode_attention_mma_kernel<__nv_bfloat16, 128>((anonymous namespace)::DecodeArgs)"
+    new = ns + ("decode_attention_mma_kernel<__nv_bfloat16, 128, false, (anonymous "
+                "namespace)::DecodeArgs>((anonymous namespace)::DecodeArgs)")
+    new_k3 = ns + ("decode_attention_mma_kernel<signed char, 64, false, (anonymous "
+                   "namespace)::DecodeInt8Args>((anonymous namespace)::DecodeInt8Args)")
     removed = ns + ("paged_attention_kernel<__nv_bfloat16, __nv_bfloat16, false, false>("
                     "(anonymous namespace)::Args)")
     k3 = ns + "paged_attention_kernel<__nv_bfloat16, signed char, false, false>((anonymous namespace)::Args)"
     f32 = ns + "paged_attention_kernel<float, float, false, false>((anonymous namespace)::Args)"
+    f32_k3 = ns + "paged_attention_kernel<float, signed char, false, false>((anonymous namespace)::Args)"
     assert chip_smoke.kernel_class(new) == "decode_attention"
     assert chip_smoke.kernel_class(removed) == "decode_attention"
     assert chip_smoke.kernel_class(k3) == "decode_attention_int8"
+    assert chip_smoke.kernel_class(new_k3) == "decode_attention_int8"
+    assert chip_smoke.kernel_class(f32_k3) == "decode_attention_int8"
     assert chip_smoke.removed_bf16(removed) == "decode"
-    assert [chip_smoke.removed_bf16(n) for n in (new, k3, f32)] == [None] * 3
+    assert chip_smoke.removed_bf16(k3) == "decode_int8"  # K3's CUDA-core version
+    assert [chip_smoke.removed_bf16(n) for n in (new, new_k3, f32, f32_k3)] == [None] * 4

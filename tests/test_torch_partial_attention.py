@@ -287,9 +287,16 @@ def test_chip_smoke_classes_the_partial_kernels():
                     "(anonymous namespace)::Args)")
     k4 = ns + ("paged_attention_kernel<__nv_bfloat16, __nv_bfloat16, false, true>("
                "(anonymous namespace)::Args)")
-    assert [chip_smoke.kernel_class(n) for n in (mma, removed, k4)] == [
-        "chunk_attention_partial", "chunk_attention_partial", "decode_attention_partial"]
+    k4_mma = ns + ("decode_attention_mma_kernel<__nv_bfloat16, 128, true, (anonymous "
+                   "namespace)::DecodePartialArgs>((anonymous namespace)::DecodePartialArgs)")
+    f32_k4 = ns + "paged_attention_kernel<float, float, false, true>((anonymous namespace)::Args)"
+    f32_pool_k4 = ns + ("paged_attention_kernel<__nv_bfloat16, float, false, true>("
+                        "(anonymous namespace)::Args)")
+    assert [chip_smoke.kernel_class(n) for n in (mma, removed, k4, k4_mma, f32_k4)] == [
+        "chunk_attention_partial", "chunk_attention_partial", "decode_attention_partial",
+        "decode_attention_partial", "decode_attention_partial"]
     assert chip_smoke.kernel_class(k2) == "chunk_attention"
     assert chip_smoke.kernel_class(k2_merge, int8_pools=True) == "chunk_attention_int8"
     assert chip_smoke.removed_bf16(removed) == "chunk_partial"
-    assert [chip_smoke.removed_bf16(n) for n in (mma, k4)] == [None, None]
+    assert chip_smoke.removed_bf16(k4) == "decode_partial"  # K4's CUDA-core version
+    assert [chip_smoke.removed_bf16(n) for n in (mma, k4_mma, f32_k4, f32_pool_k4)] == [None] * 4
