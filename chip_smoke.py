@@ -32,9 +32,13 @@ Phases (any failure exits non-zero; one JSON object per phase on stdout):
    ``decode_attention.cu``, also at head_dim 64; f32 queries on the
    CUDA-core kernel) and the chunk kernels over int8 pools;
 5. hold the int8 weight matmul kernel (K5) against its plain version at
-   the 8B's four (K, N) shapes and M = 5, 8, 64, 256, show that the
-   tolerance rejects a result with the last K slice dropped, and time it
-   rotating over 32 layer slices so that no call finds its weight in L2;
+   the 8B's four (K, N) shapes and M = 5, 8, 64, 256 (the mma.sync route
+   for M <= 8 and M > 64, wgmma for 8 < M <= 64) with each call's split
+   count, each one launch and no allocation but the output a call (split
+   partials merged in the launch), f32 x on the CUDA-core kernel, show
+   that the tolerance rejects a result with the last K slice dropped, and
+   time it rotating over 32 layer slices so that no call finds its weight
+   in L2 (its cold time);
 6. check the forward on the card (both kernels) against the checked-in HF
    golden logits and against the same forward on the CPU, then the same
    forward with int8 weights over an int8 pool against the CPU;
@@ -46,15 +50,17 @@ Phases (any failure exits non-zero; one JSON object per phase on stdout):
    kernel class and the device's idle share; it fails unless the bf16
    chunk and decode calls ran the tensor-core kernels (over int8 pools in
    phase 9) and never a removed bf16-query instantiation of the CUDA-core
-   kernel. Both serving phases
-   fail if the engine loop crashed or a request was aborted, and the first
-   if no split chunk call was merged;
+   kernel (with int8 weights also K5's mma.sync and wgmma kernels, never
+   its removed CUDA-core bf16 kernel or second-launch merge). Both serving
+   phases fail if the engine loop crashed or a request was aborted, and
+   the first if no split chunk call was merged;
 9. phases 7 and 8 again with int8 weights and an int8 KV pool
    (``TorchCudaClient.build(dtype="int8", kv_cache_dtype="int8")``): the
    int8 kernels' counts must rise and the bf16 attention counts stay 0;
    then, for both configurations, the requests served twice more with every
-   chunk and decode call of the forward held against its plain version on
-   the same inputs (fails beyond TOL), once serving the
+   chunk and decode call of the forward (and, with int8 weights, every K5
+   call) held against its plain version on the same inputs (fails beyond
+   TOL), once serving the
    kernel's result and once the plain version's, and where their greedy
    streams part from phase 7's;
 10. the page-split partial kernels (K4 for decode, the chunk partial for
@@ -211,12 +217,15 @@ def device_ms(fn, iters: int, warmup: int = 2) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    for _ in range(3):  # a window in which the profiler recorded nothing is taken again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        if total_us:
+            break
     return total_us / iters / 1e3
 
 
@@ -1163,11 +1172,61 @@ def phase_forward_tp(torch) -> dict:
     return out
 
 
+def kernel_names(torch, fn, calls: int) -> list[str]:
+    """The device kernels (and copies) that ``calls`` calls of ``fn`` run,
+    by torch.profiler, after one call outside it. A profile that recorded
+    no device event at all (the profiler here sometimes drops a window) is
+    taken again, up to three times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return names
+
+
+QMM_KERNELS = {"mma": "qmm_mma_kernel(", "wgmma": "qmm_wgmma_kernel<", "f32": "qmm_f32_kernel("}
+
+
+def qmm_one_launch(qm, torch, x, q, s, what: str) -> dict:
+    """One device kernel per call, the route's (``qmm_route``: mma.sync or
+    wgmma for bf16 x, the CUDA-core kernel for f32), never a second-launch
+    merge; and after the first call no allocation but the output's (the
+    split workspace is cached per stream)."""
+    want = QMM_KERNELS[qm.qmm_route(x.shape[0], x.dtype == torch.float32)]
+    names = kernel_names(torch, lambda: qm.qmm_int8(x, q, s), 4)
+    if len(names) != 4 or not all(want in nm for nm in names):
+        raise AssertionError(f"{what}: 4 calls ran {names}, not 4 x {want}")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    out = qm.qmm_int8(x, q, s)
+    grew = torch.cuda.memory_allocated() - before
+    del out
+    probe = torch.empty((x.shape[0], q.shape[1]), dtype=x.dtype, device=x.device)
+    out_bytes = torch.cuda.memory_allocated() - before
+    del probe
+    if grew != out_bytes:
+        raise AssertionError(f"{what}: a call allocated {grew} bytes, its output "
+                             f"{out_bytes}")
+    return {"kernels_per_call": len(names) // 4, "kernel": names[0][:80],
+            "allocated_per_call": grew}
+
+
 def qmm_case(qm, torch, x, q, s, deq, name: str) -> dict:
     """K5 against its plain version on layer 0 of a stacked weight, the
-    dropped-K-slice check, and kernel, plain and library (``torch.matmul``
-    by ``deq``, the weights dequantized to bf16) device times, each call on
-    the next of the 32 layer slices; ``events_ms`` is the kernel's CUDA-event
+    dropped-K-slice check, one launch and no allocation but the output per
+    call, and kernel, plain and library (``torch.matmul`` by ``deq``, the
+    weights dequantized to bf16) device times, each call on the next of the
+    32 layer slices, so that every timed call reads its weights from outside
+    the 50 MB L2 (its cold time); ``events_ms`` is the kernel's CUDA-event
     time over back-to-back calls, which the host's launch rate can set."""
     m, k = x.shape
     n = q.shape[2]
@@ -1175,6 +1234,7 @@ def qmm_case(qm, torch, x, q, s, deq, name: str) -> dict:
     ref = qm.plain_qmm_int8(x, q[0], s[0])
     torch.cuda.synchronize()
     err = compare(out, ref, name, f"qmm [{m}, {k}] @ [{k}, {n}]")
+    launch = qmm_one_launch(qm, torch, x, q[0], s[0], f"qmm [{m}, {k}] @ [{k}, {n}]")
     # A wrong kernel: the plain version with the last bk slice of K dropped.
     bk = qm._pick(qm._BK_CANDIDATES, k)
     wrong = qm.plain_qmm_int8(x[:, :k - bk].contiguous(), q[0, :k - bk], s[0])
@@ -1193,6 +1253,7 @@ def qmm_case(qm, torch, x, q, s, deq, name: str) -> dict:
 
     bound_ms, bound_by = bound(m * k * 2 + k * n + n * 4 + m * n * 2,
                                2.0 * m * k * n, name)
+    plan = qm.qmm_plan(m, k, n)
     return {"max_abs_err": err,
             "ms": device_ms(rotating(qm.qmm_int8, q, s), iters=2 * QMM_LAYERS),
             "events_ms": time_ms(rotating(qm.qmm_int8, q, s), iters=4 * QMM_LAYERS,
@@ -1201,7 +1262,7 @@ def qmm_case(qm, torch, x, q, s, deq, name: str) -> dict:
             "library_ms": device_ms(rotating(torch.matmul, deq), iters=2 * QMM_LAYERS),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "wrong_min_abs_err": min(float(diff[i].max()) for i in range(m)),
-            "splits": qm.qmm_splits(m, k, n)}
+            "splits": plan.splits, "k_slice": plan.k_slice, "tile_n": plan.tile_n, **launch}
 
 
 def gpu_clocks() -> str:
@@ -1217,7 +1278,9 @@ def phase_qmm(torch) -> dict:
     weight stacked over 32 layers (int8 with f32 scales) so that timed calls
     rotate through 32 distinct matrices, as the decode forward does; the
     library yardstick moves twice the weight bytes. The bf16 tolerance
-    holds because both versions sum in f32 and round once to bf16."""
+    holds because both versions sum in f32 and round once to bf16. Every
+    case also checks one launch and no allocation but the output per call,
+    and, once per (K, N), f32 x on the CUDA-core kernel."""
     from runbookai_tpu_torch.ops import qmm as qm
 
     clocks_before = gpu_clocks()
@@ -1225,6 +1288,7 @@ def phase_qmm(torch) -> dict:
     gen = torch.Generator(device=dev).manual_seed(5)
     name = "bfloat16"
     cases: dict = {}
+    f32_err = 0.0
     for k, n in sorted(set(QMM_SHAPES.values())):
         q = torch.empty((QMM_LAYERS, k, n), dtype=torch.int8, device=dev)
         for part in q:
@@ -1235,6 +1299,12 @@ def phase_qmm(torch) -> dict:
         for m in QMM_ROWS:
             x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
             cases[f"{m}x{k}x{n}"] = qmm_case(qm, torch, x, q, s, deq, name)
+        # f32 x: the CUDA-core kernel, on the same workspace and merge.
+        x = torch.randn((QMM_ROWS[0], k), generator=gen, device=dev)
+        f32_err = max(f32_err, compare(qm.qmm_int8(x, q[0], s[0]),
+                                       qm.plain_qmm_int8(x, q[0], s[0]), "float32",
+                                       f"qmm f32 [{x.shape[0]}, {k}] @ [{k}, {n}]"))
+        qmm_one_launch(qm, torch, x, q[0], s[0], f"qmm f32 [{x.shape[0]}, {k}] @ [{k}, {n}]")
         del q, s, deq
     per_layer = {}
     for m, key in ((8, "decode"), (64, "verify")):  # one layer's seven products
@@ -1247,6 +1317,7 @@ def phase_qmm(torch) -> dict:
     return {"phase": "qmm_kernel", "tol": TOL[name], "layers_rotated": QMM_LAYERS,
             "clocks_before_after": [clocks_before, gpu_clocks()],
             "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+            "f32_cuda_core_max_abs_err": f32_err,
             "per_layer": per_layer, "cases": cases}
 
 
@@ -1597,7 +1668,10 @@ REMOVED_BF16 = {("true", "false"): "chunk", ("false", "false"): "decode",
 
 def removed_bf16(name: str):
     """Which removed instantiation a profiled kernel is ("chunk", "decode",
-    "decode_int8", "decode_partial", "chunk_partial"), or None."""
+    "decode_int8", "decode_partial", "chunk_partial", or "qmm": K5's
+    CUDA-core bf16 kernel or its second-launch merge), or None."""
+    if "qmm_kernel<__nv_bfloat16>" in name or "qmm_finish_kernel<" in name:
+        return "qmm"
     args = template_args(name, "paged_attention_kernel")  # <TQ, TKV, kCausal, kPartial>
     if not args or args[0] != "__nv_bfloat16":
         return None
@@ -1660,8 +1734,9 @@ def phase_profile(torch, weights: str = "bfloat16", overlap: bool = True) -> dic
         acc[1] += 1
         by_name[name] = by_name.get(name, 0.0) + ms
     # The routes: bf16 chunk and decode calls on the tensor-core kernels,
-    # over bf16 and int8 pools; page-split chunk and decode partials too; no
-    # call on a removed CUDA-core instantiation.
+    # over bf16 and int8 pools, and K5 on its tensor-core kernels; page-split
+    # chunk and decode partials too; no call on a removed CUDA-core
+    # instantiation.
     old = [n for n in by_name if removed_bf16(n)]
     if weights == "kv_split":
         want = [("chunk_partial_mma_kernel<", "chunk_attention_partial"),
@@ -1670,6 +1745,8 @@ def phase_profile(torch, weights: str = "bfloat16", overlap: bool = True) -> dic
         int8 = "_int8" if weights == "int8" else ""
         want = [("chunk_attention_mma_kernel<", "chunk_attention" + int8),
                 ("decode_attention_mma_kernel<", "decode_attention" + int8)]
+        if weights == "int8":  # K5: decode rows on mma.sync, verify and prefill rows on wgmma
+            want += [("qmm_mma_kernel(", "qmm"), ("qmm_wgmma_kernel<", "qmm")]
     missed = [cls for pat, cls in want
               if not any(pat in n and kernel_class(n, weights == "int8") == cls
                          for n in by_name)]
@@ -1704,7 +1781,8 @@ def phase_witness(torch, pa, weights: str, served: dict) -> dict:
     forward to the kernels under test made twice: the kernel, and its plain
     version on the same inputs (f32 throughout, rounded once), each call's
     result held against the other at TOL (fails beyond it). The calls: chunk
-    and decode attention (``models.llama``); on the page-split mesh the
+    and decode attention (``models.llama``), with int8 weights also K5
+    (``qmm_int8``); on the page-split mesh the
     chunk and decode partials (``parallel.kv_split``), their (acc, m, l)
     each. The first run serves the kernel's result, as the serving phase
     did; the second serves the plain version's, which shows how far the
@@ -1712,6 +1790,7 @@ def phase_witness(torch, pa, weights: str, served: dict) -> dict:
     alone. Each run records where its streams first differ from the
     serving phase's."""
     from runbookai_tpu_torch.models import llama
+    from runbookai_tpu_torch.ops import qmm
     from runbookai_tpu_torch.parallel import kv_split
 
     def plain_chunk(q, k, v, tables, ctx, pos, ps):
@@ -1737,6 +1816,8 @@ def phase_witness(torch, pa, weights: str, served: dict) -> dict:
                    (llama, "paged_decode_attention", plain_decode)]
         if weights == "mixed":  # W1's launch, on the blocks' gathered tables
             targets.append((llama, "ragged_block_attention", plain_chunk))
+        if weights == "int8":  # K5: every int8 weight product of M <= 256
+            targets.append((llama, "qmm_int8", qmm.plain_qmm_int8))
     seen = {attr: {"calls": 0, "calls_beyond_tol": 0, "max_abs_err": 0.0, "finite": True}
             for _, attr, _ in targets}
     serve_plain = [False]
@@ -2043,13 +2124,19 @@ def main() -> int:
                              "q": case["q"], "max_abs_err": case["max_abs_err"]}
         kernels.append(row)
     # K5 per decode layer: the sum over its seven products at M=8 (and, under
-    # "verify", at M=64), each timed on rotating layer slices.
+    # "verify", at M=64), each timed on rotating layer slices. Every timed
+    # call reads its weights from outside the 50 MB L2 (32 slices of 4 to
+    # 58.7 MB), so the device time is also the cold time.
+    qmm_rows = {key: {**row, "cold_ms": row["ms"]} for key, row in qmm["per_layer"].items()}
     kernels.append({"name": "qmm_int8", "route": "cuda",
                     "source": "runbookai_tpu_torch/csrc/qmm.cu",
                     "replaces": "runbookai_tpu/ops/qmm_pallas.py:83",
                     "launches": eng8["launches"]["qmm_int8"],
-                    "max_abs_err": qmm["max_abs_err"], **qmm["per_layer"]["decode"],
-                    "verify": qmm["per_layer"]["verify"]})
+                    "max_abs_err": qmm["max_abs_err"],
+                    "f32_cuda_core_max_abs_err": qmm["f32_cuda_core_max_abs_err"],
+                    **qmm_rows["decode"], "verify": qmm_rows["verify"],
+                    "splits": {f"{c}@{m}": qmm["cases"][f"{m}x{k}x{n}"]["splits"]
+                               for m in (8, 64) for c, (k, n) in QMM_SHAPES.items()}})
     emit({"kernels": kernels})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

@@ -262,19 +262,27 @@ def _require_dense(cfg: LlamaConfig) -> None:
             f"{cfg.name}: mixture-of-experts models are not ported yet")
 
 
+# The largest float32 draw of a 2-D leaf (64 MiB), below one layer matrix of
+# the 8B (4096 x 14336).
+_DRAW_ELEMS = 1 << 24
+
+
 def _build_params(cfg: LlamaConfig, dtype: torch.dtype, device,
                   generator: Optional[torch.Generator], layer_init=None) -> Params:
     """Random-init params directly on ``device``. Dense leaves are scaled
-    normal (``1/sqrt(fan_in)``): each layer slice is drawn in float32 and
-    cast into the stacked ``dtype`` tensor, so a full-width model never
-    exists in float32 or on the host. ``layer_init(shape, fan_in)``, when
-    given, makes the seven layer matrices instead."""
+    normal (``1/sqrt(fan_in)``): each layer of a stacked leaf, and each
+    slice of at most ``_DRAW_ELEMS`` elements (whole rows) of the embedding
+    and head, is drawn in float32 and cast into the ``dtype`` tensor, so no
+    whole leaf, let alone a full-width model, exists in float32 or on the
+    host. ``layer_init(shape, fan_in)``, when given, makes the seven layer
+    matrices instead."""
     _require_dense(cfg)
     device = torch.device(device)
 
     def dense(shape, fan_in):
         out = torch.empty(shape, dtype=dtype, device=device)
-        for part in (out if len(shape) == 3 else out[None]):
+        parts = out if len(shape) == 3 else out.split(max(1, _DRAW_ELEMS // shape[-1]))
+        for part in parts:
             part.copy_(torch.randn(part.shape, generator=generator,
                                    device=device) / math.sqrt(fan_in))
         return out

@@ -6,6 +6,8 @@ one shared library with a plain C interface, named by a hash of all the
 sources and headers, under ``runbookai_tpu_torch/_build/``. :func:`library` builds it on
 first use unless a library of the same sources exists, and loads it with
 ``ctypes``; :data:`SIGNATURES` declares every exported function.
+:func:`split_workspace` holds the counters and float32 partials of the
+kernels that merge their splits in the launch.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Optional
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -55,11 +59,35 @@ SIGNATURES = {
     # q, k, v, tables, ctx_lens, acc, m, l, ws, counters, B, n_q, n_kv, hd, ps,
     # P, splits, cols, shard, pages_local, scale, stream
     "rb_paged_decode_attention_partial_mma": [_p] * 10 + [_i] * 10 + [_f, _p],
-    # x, q, s, out, partial, M, K, N, k_split, x_dtype, stream
-    "rb_qmm_int8": [_p] * 5 + [_i] * 5 + [_p],
+    # x, q, s, out, ws, counters, M, K, N, k_slice, tile_n, x_dtype, stream
+    "rb_qmm_int8": [_p] * 6 + [_i] * 6 + [_p],
 }
 
+# The SMs of an H100, from which the kernels' plans size their grids.
+SMS = 132
+
 _lib: Optional[ctypes.CDLL] = None
+
+# Per (device, stream): the int32 counters (zero between launches) and f32
+# split partials of the kernels that merge their splits in the launch (the
+# decode kernel, the chunk partial, the int8 matmul), grown when a larger
+# shape comes. Calls on one stream run in order, so they share it.
+_split_workspaces: dict = {}
+
+
+def split_workspace(device: torch.device, stream: int, n_counters: int, n_floats: int):
+    """The stream's (counters, workspace), at least ``n_counters`` and
+    ``n_floats`` long; allocated only when a call needs more than any
+    before it."""
+    key = (device.index, stream)
+    counters, ws = _split_workspaces.get(key, (None, None))
+    if counters is None or counters.numel() < n_counters or ws.numel() < n_floats:
+        n_counters = max(n_counters, 0 if counters is None else counters.numel())
+        n_floats = max(n_floats, 0 if ws is None else ws.numel())
+        counters = torch.zeros(n_counters, dtype=torch.int32, device=device)
+        ws = torch.empty(n_floats, dtype=torch.float32, device=device)
+        _split_workspaces[key] = (counters, ws)
+    return counters, ws
 
 
 def sources() -> list[Path]:

@@ -66,8 +66,7 @@ from typing import Optional
 import torch
 
 from runbookai_tpu_torch.ops.attention import Pool, dequant_gather
-from runbookai_tpu_torch.ops.build import library, raise_on
-from runbookai_tpu_torch.ops.qmm import SMS
+from runbookai_tpu_torch.ops.build import SMS, library, raise_on, split_workspace
 
 NEG_INF = -1e30
 
@@ -352,25 +351,6 @@ def decode_plan(b: int, n_q: int, n_kv: int, hd: int, p: int) -> DecodePlan:
     return DecodePlan(splits, cols, 0 if splits == 1 else b * n_q * splits * (hd + 2))
 
 
-# Per (device, stream): the int32 counters (zero between launches) and f32
-# split partials of the kernels that merge their splits in the launch (the
-# decode kernel, the chunk partial), grown when a larger shape comes. Calls
-# on one stream run in order, so they share it.
-_split_workspaces: dict = {}
-
-
-def _split_workspace(device: torch.device, stream: int, n_counters: int, n_floats: int):
-    key = (device.index, stream)
-    counters, ws = _split_workspaces.get(key, (None, None))
-    if counters is None or counters.numel() < n_counters or ws.numel() < n_floats:
-        n_counters = max(n_counters, 0 if counters is None else counters.numel())
-        n_floats = max(n_floats, 0 if ws is None else ws.numel())
-        counters = torch.zeros(n_counters, dtype=torch.int32, device=device)
-        ws = torch.empty(n_floats, dtype=torch.float32, device=device)
-        _split_workspaces[key] = (counters, ws)
-    return counters, ws
-
-
 def _decode_launch_plan(q, k, v, page_tables, stream):
     """Checks of a tensor-core decode call, its :func:`decode_plan` and, when
     split, the stream's (counters, workspace)."""
@@ -384,7 +364,7 @@ def _decode_launch_plan(q, k, v, page_tables, stream):
     plan = decode_plan(b, n_q, n_kv, hd, page_tables.shape[1])
     counters = ws = None
     if plan.splits > 1:
-        counters, ws = _split_workspace(q.device, stream, b * n_kv, plan.workspace_floats)
+        counters, ws = split_workspace(q.device, stream, b * n_kv, plan.workspace_floats)
     return plan, counters, ws
 
 
@@ -744,7 +724,7 @@ def _chunk_partial_mma(q, k, v, page_tables, ctx_lens, q_positions, shard, page_
     l = torch.empty_like(m)
     counters = ws = None
     if plan.splits > 1:
-        counters, ws = _split_workspace(q.device, stream, plan.q_tiles * b * n_kv,
+        counters, ws = split_workspace(q.device, stream, plan.q_tiles * b * n_kv,
                                         plan.workspace_bytes // 4)
     rc = library().rb_paged_chunk_attention_partial_mma(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), page_tables.data_ptr(),

@@ -111,11 +111,13 @@ def test_qmm_int8_refuses_ineligible_shapes():
 
 
 def test_qmm_splits_tile_k():
-    """Every split the wrapper picks cuts K into whole multiples of 32 rows."""
+    """Every split of the wrapper's plan cuts K into whole multiples of 32
+    rows, and the splits cover K."""
     for m, (k, n) in itertools.product(
             [5, 8, 64, 256], [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]):
-        splits = tqmm.qmm_splits(m, k, n)
-        assert splits >= 1 and k % (32 * splits) == 0, (m, k, n, splits)
+        plan = tqmm.qmm_plan(m, k, n)
+        assert plan.splits >= 1 and plan.k_slice % 32 == 0, (m, k, n, plan)
+        assert (plan.splits - 1) * plan.k_slice < k <= plan.splits * plan.k_slice
 
 
 @pytest.mark.parametrize("lead", [(1, 1), (2, 4), (4, 64), (2, 200)])
