@@ -94,13 +94,22 @@ Phases (any failure exits non-zero; one JSON object per phase on stdout):
    rows): 8 decode rows at the served contexts with a 512-token prefill
    at offset 4096, and 7 decode rows up to 8191 tokens with a free slot
    and a 500-token prefill ending in a pad block, the latter also over an
-   int8 pool and at a GQA group of 7 and at head_dim 64; each against its
-   plain version, pad blocks exactly zero, one launch a call, timed beside
-   its bound and SDPA on each block's gathered K/V;
+   int8 pool and at a GQA group of 7 and at head_dim 64; each through its
+   per-layer launch on a tile list built beforehand (the ragged kernel of
+   ``ragged_attention.cu``), against its plain version, pad blocks exactly
+   zero, one kernel and no allocation but the output a call, timed (also
+   L2-cold) beside its bound and SDPA on each block's gathered K/V, with
+   its tile count and modeled key visits, and the whole call; the tile
+   list's kernel (``ragged_plan.cu``, one launch) against its plain
+   version record for record, timed beside it; a batch of 18 long decode
+   rows, of which the first 16 split and the last two do not, against the
+   plain version; K2's one-row prefill at offset 4096 is timed beside them;
 14. (after phase 9) the requests served with mixed dispatch on
    (``engine={"mixed_dispatch": True}``): it fails unless mixed steps ran
-   and W1 launched; its profiled rerun; its witness (W1's calls, chunk and
-   decode calls each held against the plain version); then bf16 serving
+   and W1 and its tile list launched; its profiled rerun (the ragged kernel
+   once per W1 call, the list's kernel once per list, K2's kernel once per
+   K2 call); its witness (W1's calls, its lists exactly, chunk and decode
+   calls each held against the plain version); then bf16 serving
    with the overlapped pipeline off, whose greedy streams must equal phase
    7's wherever both runs issued the same forwards (the serving phases log
    each forward's entry point and token shape), and its profiled rerun
@@ -109,16 +118,35 @@ Phases (any failure exits non-zero; one JSON object per phase on stdout):
 Then it prints the kernels' line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.
 
-    python3 chip_smoke.py --serve-ab DIR
+    python3 chip_smoke.py --serve-ab DIR [bfloat16] [int8] [mixed]
 
-runs instead a same-card A/B of phases 7 to 9 (bf16 and int8 serving, each
-after an unrecorded warm-up run, and their profiled reruns) between DIR,
+runs instead a same-card A/B of serving phases (by default phases 7 to 9:
+bf16 and int8 serving; ``mixed``: phase 14's mixed dispatch; each after an
+unrecorded warm-up run, and their profiled reruns) between DIR,
 another checkout of the repository (for example a parent commit unpacked
 with ``git archive``), and this one, each by its own ``chip_smoke.py`` in a
 fresh process, in the order DIR, this, this, DIR; every line goes to
 ``OUT_DIR/serve_ab.jsonl``. It lives here because a checkout's serving
 phases are reached only through its own ``chip_smoke.py``, and it is the
 committed source of PERF.md's same-card serving comparisons.
+
+    python3 chip_smoke.py --kernel-ab DIR
+
+runs instead the attention kernel phases (2, 3 and 13) of DIR and of this
+checkout, each by its own ``chip_smoke.py`` in a fresh process, in the
+order DIR, this, this, DIR, and writes their device times (K1 on the
+decode input; K2 on the 4 x 512 prefill, the T=8 verify and the one-row
+prefill; W1 in its five cases) and this checkout's mean over DIR's to
+``OUT_DIR/kernel_ab.jsonl``.
+
+    python3 chip_smoke.py --forward-ab DIR
+
+times one mixed forward of the 8B at full depth on phase 13's served batch
+(events over back-to-back forwards, device time, host time to issue one)
+with DIR's package and with this one's, each in a fresh process, in the
+order DIR, this, this, DIR, measured by this file's code; lines in
+``OUT_DIR/forward_ab.jsonl``. The mixed path's A/B apart from the
+greedy streams, which change the serving phases' dispatches.
 
     python3 chip_smoke.py --overlap-ab
 
@@ -554,8 +582,8 @@ def time_chunk(pa, torch, q, k, v, tables, ctx, pos, dtype_name: str) -> dict:
     n_bytes = (2 * q.numel() * q.element_size() + sum(ctx_l) * 2 * token_bytes(k)
                + sum(-(-c // PS) for c in ctx_l) * 4 + 2 * len(ctx_l) * 4)
     bound_ms, bound_by = bound(n_bytes, 4.0 * pairs * q.shape[2] * HD, dtype_name)
-    return {"ms": ms, "device_ms": device_ms(call, iters=10), "host_ms": host_ms(call),
-            "plain_ms": plain_ms, "library_ms": library_ms,
+    return {"ms": ms, "device_ms": device_ms(call, iters=10), "cold_ms": cold_ms(call),
+            "host_ms": host_ms(call), "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
@@ -615,6 +643,7 @@ def merge_case(pa, torch, q, k, v, tables, ctx, q_start) -> dict:
     bound_ms, bound_by = bound(n_bytes, 3.0 * acc.numel(), "float32")
     return {"splits": plan.splits, "max_abs_err": errs["bfloat16"], "errs": errs,
             "ms": time_ms(lambda: pa.chunk_merge(acc, m, l, torch.bfloat16)),
+            "cold_ms": cold_ms(lambda: pa.chunk_merge(acc, m, l, torch.bfloat16)),
             "plain_ms": time_ms(lambda: pa.merge_partials(list(zip(acc, m, l)), q.device)
                                 .to(torch.bfloat16), iters=5, warmup=1),
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
@@ -713,40 +742,127 @@ def ragged_inputs(torch, dev, gen, dtype, kind, n_q=N_Q, n_kv=N_KV, hd=HD):
     return q, k, v, tables, ctx, pos, rows, pads
 
 
+def modeled_kv_bytes(pa, plan, k) -> dict:
+    """A model, not a measurement: the key visits of the ragged kernel's
+    live tiles (``ragged_plan``; each tile loads its keys for its kv head,
+    from L2 or device memory) and those visits times the K and V bytes of a
+    key and kv head. No byte counter of the card is read."""
+    pool = k[0] if isinstance(k, tuple) else k
+    per_key = 2 * token_bytes(k) // pool.shape[1]  # K and V of one kv head
+    live = int(plan.live)
+    visits = int(plan.weight[:live].sum())
+    return {"tiles": live, "modeled_key_visits": visits,
+            "modeled_kv_bytes": visits * per_key}
+
+
+def modeled_k2_block_bytes(k, block_ctx, block_start) -> int:
+    """The same model for K2's kernel at ``[N / 8, 8]`` on the same batch, as
+    W1 ran before: each block visits the keys below min(ctx, its last
+    position + 1), every kv head."""
+    return sum(max(0, min(c, s + RQ)) for c, s in zip(block_ctx, block_start)) * 2 * \
+        token_bytes(k)
+
+
+def plan_case(pa, torch, rows, ctx, pos, n_q: int, n_kv: int, hd: int, p: int) -> dict:
+    """W1's tile list: the kernel (``ragged_plan``, one launch a call)
+    against its plain version (``plain_ragged_plan``, tensor ops on the
+    card), record for record; their times, and the bound of the kernel's
+    bytes (the blocks' row ids and positions and the rows' contexts read
+    once, the records, weights and live count written once)."""
+    def kernel():
+        return pa.ragged_plan(rows, ctx, pos, n_q, n_kv, hd, p, PS, RQ)
+
+    def plain():
+        return pa.plain_ragged_plan(rows, ctx, pos, n_q, n_kv, hd, p, PS, RQ)
+
+    reset_counts()
+    got = kernel()
+    torch.cuda.synchronize()
+    launched = counts()
+    if launched["ragged_plan"] != 1 or sum(launched.values()) != 1:
+        raise AssertionError(f"ragged_plan: {launched} launches for one call")
+    want = plain()
+    diff = max(int((got.tiles - want.tiles).abs().max()),
+               int((got.weight - want.weight).abs().max()), abs(int(got.live) - int(want.live)))
+    if diff:
+        raise AssertionError(f"ragged_plan: the kernel's list differs from the plain "
+                             f"version's by up to {diff}")
+    names = kernel_names(torch, kernel, 2)
+    if len(names) != 2 or not all(PLAN_KERNEL in nm for nm in names):
+        raise AssertionError(f"ragged_plan: 2 calls ran {names}, not 2 x {PLAN_KERNEL}")
+    n_bytes = (2 * (rows.numel() // RQ) * 4 + ctx.numel() * 4
+               + got.tiles.numel() * 4 + got.weight.numel() * 4 + 4)
+    bound_ms, bound_by = bound(n_bytes, 0.0, "bfloat16")
+    return {"max_abs_err": diff, "records": got.tiles.shape[0], "live": int(got.live),
+            "ms": time_ms(kernel), "device_ms": device_ms(kernel, iters=10),
+            "cold_ms": cold_ms(kernel), "host_ms": host_ms(kernel),
+            "plain_ms": time_ms(plain), "plain_device_ms": device_ms(plain, iters=10),
+            "plain_host_ms": host_ms(plain), "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
+RAGGED_KERNEL = "ragged_attention_kernel<"
+PLAN_KERNEL = "ragged_plan_kernel"
+
+
 def ragged_case(pa, torch, q, k, v, tables, ctx, pos, rows, pads, name: str) -> dict:
     """W1 against its plain version (the blocks' tables gathered, then the
-    plain chunk attention), pad blocks exactly zero, launches a call, and
-    its times beside its bound and SDPA on each block's gathered K/V with
-    its causal mask."""
+    plain chunk attention), pad blocks exactly zero; the per-layer launch on
+    a tile list built beforehand (``ragged_tile_attention``, as the ragged
+    forward makes it): one ragged kernel a call, no merge launch and no
+    allocation but the output after the first call; its times (events,
+    device, L2-cold, host) beside its bound and SDPA on each block's gathered
+    K/V with its causal mask; the list's kernel against its plain version
+    (:func:`plan_case`) and the whole call (``paged_ragged_attention``: list,
+    then launch); the tile count, and the modeled key visits and K/V bytes
+    a call beside K2's at ``[N / 8, 8]`` (a model, not a measurement)."""
     import torch.nn.functional as F
 
     n, n_q, hd = q.shape
     nb = n // RQ
+    pool = k[0] if isinstance(k, tuple) else k
+    name_w1 = "paged_ragged_attention" + ("_int8" if isinstance(k, tuple) else "")
+
+    plan_res = plan_case(pa, torch, rows, ctx, pos, n_q, pool.shape[1], hd, tables.shape[1])
+    plan = pa.ragged_plan(rows, ctx, pos, n_q, pool.shape[1], hd, tables.shape[1], PS, RQ)
 
     def call():
+        return pa.ragged_tile_attention(q, k, v, tables, ctx, pos, rows, plan, PS)
+
+    def whole():
         return pa.paged_ragged_attention(q, k, v, tables, ctx, pos, rows, PS, ragged_block=RQ)
 
     reset_counts()
     out = call()
     torch.cuda.synchronize()
     launched = counts()
-    per_call = sum(launched[x] for x in ("paged_ragged_attention",
-                                         "paged_ragged_attention_int8", "paged_chunk_merge"))
-    if per_call != 1:
+    per_call = sum(launched.values())
+    if per_call != 1 or launched[name_w1] != 1:
         raise AssertionError(f"ragged {name}: {launched} launches for one call")
-    block_rows = rows.view(nb, RQ)[:, 0].long()
-    bt, bc = tables[block_rows], ctx[block_rows]
-    qb, pb = q.view(nb, RQ, n_q, hd), pos.view(nb, RQ)
-    q_start = pb[:, 0].contiguous()
+    names = kernel_names(torch, call, 4)
+    if len(names) != 4 or not all(RAGGED_KERNEL in nm for nm in names):
+        raise AssertionError(f"ragged {name}: 4 calls ran {names}, not 4 x {RAGGED_KERNEL}")
+    before = torch.cuda.memory_allocated()
+    again = call()
+    grew = torch.cuda.memory_allocated() - before
+    del again
+    if grew != out.numel() * out.element_size():
+        raise AssertionError(f"ragged {name}: a call allocated {grew} bytes, its output "
+                             f"{out.numel() * out.element_size()}")
 
     def plain():
-        return pa.plain_paged_attention(qb, k, v, bt, bc, q_start, PS).view(n, n_q, hd)
+        return pa.plain_ragged_attention(q, k, v, tables, ctx, pos, rows, PS, RQ)
 
     ref = plain()
     torch.cuda.synchronize()
     err = compare(out, ref, "bfloat16", f"ragged {name}")
+    err_whole = compare(whole(), ref, "bfloat16", f"ragged {name} (whole call)")
     if pads and bool((out[pads] != 0).any()):
         raise AssertionError(f"ragged {name}: a pad block is not exactly zero")
+    block_rows = rows.view(nb, RQ)[:, 0].long()
+    bt, bc = tables[block_rows], ctx[block_rows]
+    qb, pb = q.view(nb, RQ, n_q, hd), pos.view(nb, RQ)
+    q_start = pb[:, 0].contiguous()
     ctx_l, start_l = bc.tolist(), q_start.tolist()
     q4, kk, vv = gather_for_library(qb, k, v, bt, ctx_l, int(ctx.max()))
     kpos = torch.arange(kk.shape[2], device=q.device)
@@ -764,24 +880,77 @@ def ragged_case(pa, torch, q, k, v, tables, ctx, pos, rows, pads, name: str) -> 
     n_bytes = (2 * q.numel() * q.element_size() + sum(row_ctx) * 2 * token_bytes(k)
                + sum(-(-c // PS) for c in row_ctx) * 4 + 2 * n * 4)
     bound_ms, bound_by = bound(n_bytes, 4.0 * pairs * n_q * hd, "bfloat16")
-    plan = pa.chunk_plan(nb, RQ, n_q, (k[0] if isinstance(k, tuple) else k).shape[1], hd,
-                         tables.shape[1])
-    return {"max_abs_err": err, "tol": TOL["bfloat16"], "pad_tokens": len(pads),
+    return {"max_abs_err": err, "max_abs_err_whole_call": err_whole, "tol": TOL["bfloat16"],
+            "pad_tokens": len(pads),
             "pad_max_abs": float(out[pads].abs().max()) if pads else None,
-            "launches_per_call": per_call, "splits": plan.splits, "rows_per_block": plan.rows,
+            "launches_per_call": per_call, "kernel": names[0][:80], "allocated_per_call": grew,
+            "ctas": plan.shape.ctas, "capacity": plan.shape.capacity,
+            "keys_per_split": plan.shape.keys_per_split,
+            "splits": max(1, int(plan.tiles[:int(plan.live), 7].max())),
+            **modeled_kv_bytes(pa, plan, k),
+            "modeled_kv_bytes_k2_blocks": modeled_k2_block_bytes(k, ctx_l, start_l),
             "ms": time_ms(call), "device_ms": device_ms(call, iters=10),
-            "host_ms": host_ms(call), "plain_ms": time_ms(plain, iters=2, warmup=1),
+            "cold_ms": cold_ms(call), "host_ms": host_ms(call), "plan": plan_res,
+            "call_device_ms": device_ms(whole, iters=10),
+            "plain_ms": time_ms(plain, iters=2, warmup=1),
             "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "decode_ctx": ctx_l[:B], "q": list(q.shape)}
 
 
+def wide_runs_case(pa, torch, dev, gen) -> dict:
+    """W1 on more long decode rows than split: 18 one-block rows of 1,100
+    to 1,440 keys (two splits of 1,088 each), a 64-token prefill at offset
+    512 and two pad blocks. The first 16 rows split in their workspace
+    slots, the last two walk their keys in one tile; against the plain
+    version (whole call: list, then launch), pad blocks exactly zero."""
+    slots, pf_len, pf_start = 18, 64, 512
+    ctx_rows = [1100 + 20 * s for s in range(slots)] + [pf_start + pf_len, 0]
+    null = len(ctx_rows) - 1
+    k, v, tables = make_pool(gen, torch.bfloat16, ctx_rows, dev)
+    tables[null] = 0
+    n = slots * RQ + pf_len + 2 * RQ
+    pos = torch.full((n,), MAX_PAGES * PS, dtype=torch.int32, device=dev)
+    rows = torch.full((n,), null, dtype=torch.int32, device=dev)
+    for s_ in range(slots):
+        pos[s_ * RQ] = ctx_rows[s_] - 1
+        rows[s_ * RQ:(s_ + 1) * RQ] = s_
+    off = slots * RQ
+    pos[off:off + pf_len] = torch.arange(pf_start, pf_start + pf_len, dtype=torch.int32,
+                                         device=dev)
+    rows[off:off + pf_len] = slots
+    ctx = torch.tensor(ctx_rows, dtype=torch.int32, device=dev)
+    q = torch.randn((n, N_Q, HD), generator=gen, device=dev).to(torch.bfloat16)
+    plan = pa.ragged_plan(rows, ctx, pos, N_Q, N_KV, HD, tables.shape[1], PS, RQ)
+    want = pa.plain_ragged_plan(rows, ctx, pos, N_Q, N_KV, HD, tables.shape[1], PS, RQ)
+    if not all(torch.equal(getattr(plan, f), getattr(want, f))
+               for f in ("tiles", "live", "weight")):
+        raise AssertionError("wide runs: the tile list kernel differs from its plain version")
+    live = plan.tiles[:int(plan.live)]
+    split_rows = sorted({int(t[1]) // RQ for t in live if int(t[7]) > 1})
+    if split_rows != list(range(pa.RAGGED_SPLIT_RUNS)):
+        raise AssertionError(f"wide runs: rows {split_rows} split, not the first "
+                             f"{pa.RAGGED_SPLIT_RUNS}")
+    out = pa.paged_ragged_attention(q, k, v, tables, ctx, pos, rows, PS, ragged_block=RQ)
+    ref = pa.plain_ragged_attention(q, k, v, tables, ctx, pos, rows, PS, RQ)
+    err = compare(out, ref, "bfloat16", "ragged wide runs")
+    pads = list(range(n - 2 * RQ, n))
+    if bool((out[pads] != 0).any()):
+        raise AssertionError("ragged wide runs: a pad block is not exactly zero")
+    return {"max_abs_err": err, "split_rows": len(split_rows),
+            "unsplit_wide_rows": slots - len(split_rows), "tiles": int(plan.live),
+            "q": list(q.shape)}
+
+
 def phase_ragged(pa, torch) -> dict:
-    """W1 (``paged_ragged_attention``) on the card at the serving
-    configuration's mixed shape (N = 576, R = 13): 8 decode rows at the
-    served contexts with a 512-token prefill at offset 4096; 7 decode rows
-    up to 8191 tokens, a free slot and a 500-token prefill ending in a pad
-    block; the latter over an int8 pool and at two more geometries (a GQA
-    group of 7, head_dim 64)."""
+    """W1 (``paged_ragged_attention``; its per-layer launch
+    ``ragged_tile_attention``) on the card at the serving configuration's
+    mixed shape (N = 576, R = 13): 8 decode rows at the served contexts with
+    a 512-token prefill at offset 4096; 7 decode rows up to 8191 tokens, a
+    free slot and a 500-token prefill ending in a pad block; the latter over
+    an int8 pool and at two more geometries (a GQA group of 7, head_dim 64).
+    Then more long decode rows than split (:func:`wide_runs_case`). Beside
+    them, in the same phase, K2 on its one-row prefill of 512 tokens at
+    offset 4096 (the served case's prefill row alone)."""
     from runbookai_tpu_torch.ops.attention import quantize_kv
 
     dev = torch.device(DEVICE)
@@ -803,8 +972,19 @@ def phase_ragged(pa, torch) -> dict:
         result[geo] = {"heads": [n_q, n_kv], "head_dim": hd,
                        **ragged_case(pa, torch, q, k, v, tables, ctx, pos, rows, pads, geo)}
         del q, k, v
+    q, k, v, tables, ctx, pos, _ = chunk_inputs(torch, dev, gen, torch.bfloat16,
+                                                "prefill_one_row")
+
+    def k2_call():
+        return pa.paged_chunk_attention(q, k, v, tables, ctx, pos, PS)
+
+    result["k2_one_row_prefill"] = {"device_ms": device_ms(k2_call, iters=10),
+                                    "cold_ms": cold_ms(k2_call), "ms": time_ms(k2_call)}
+    del q, k, v
+    result["wide_runs"] = wide_runs_case(pa, torch, dev, gen)
     result["max_abs_err"] = max(result[x]["max_abs_err"]
-                                for x in (*RAGGED_KINDS, "int8", *RAGGED_GEOMETRIES))
+                                for x in (*RAGGED_KINDS, "int8", *RAGGED_GEOMETRIES,
+                                          "wide_runs"))
     return result
 
 
@@ -1174,21 +1354,23 @@ def phase_forward_tp(torch) -> dict:
 
 def kernel_names(torch, fn, calls: int) -> list[str]:
     """The device kernels (and copies) that ``calls`` calls of ``fn`` run,
-    by torch.profiler, after one call outside it. A profile that recorded
-    no device event at all (the profiler here sometimes drops a window) is
-    taken again, up to three times."""
+    by torch.profiler, after one call outside it. Every caller's ``fn``
+    launches at least one kernel a call, so a profile that recorded fewer
+    device events than ``calls`` (the profiler here sometimes drops a whole
+    window, or some of its events) is taken again, up to five times; the
+    callers then check the names and their count."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         names = [e.name for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        if names:
+        if len(names) >= calls:
             break
     return names
 
@@ -1453,8 +1635,8 @@ SERVING = {
     "kv_split": dict(must=PARTIALS,
                      never=("paged_decode_attention", "paged_chunk_attention")),
     # bf16 with mixed dispatch: the first prefill (nothing decodes yet) and
-    # the verifies stay on K2, the mixed steps run W1.
-    "mixed": dict(must=("paged_ragged_attention", "paged_decode_attention",
+    # the verifies stay on K2, the mixed steps run W1's ragged kernel.
+    "mixed": dict(must=("ragged_plan", "paged_ragged_attention", "paged_decode_attention",
                         "paged_chunk_attention"), never=PARTIALS),
 }
 
@@ -1497,7 +1679,7 @@ def counts() -> dict:
     from runbookai_tpu_torch.ops import paged_attention as pa
     from runbookai_tpu_torch.ops import qmm as qm
 
-    return {**pa.launches, **pa.merge_launches, **qm.launches}
+    return {**pa.launches, **pa.merge_launches, **pa.plan_launches, **qm.launches}
 
 
 def free_device(torch) -> None:
@@ -1696,6 +1878,11 @@ def kernel_class(name: str, int8_pools: bool = False) -> str:
         return "chunk_attention" + ("_int8" if args[0] in INT8_ARGS else "")
     if "chunk_partial_mma_kernel<" in name:
         return "chunk_attention_partial"
+    args = template_args(name, "ragged_attention_kernel")  # <TKV, HD>
+    if args:
+        return "ragged_attention" + ("_int8" if args[0] in INT8_ARGS else "")
+    if PLAN_KERNEL in name:
+        return "ragged_plan"
     args = template_args(name, "decode_attention_mma_kernel")  # <TKV, HD, kPartial, Args>
     if args:
         return "decode_attention" + ("_partial" if args[2:3] == ["true"] else "") + (
@@ -1719,9 +1906,11 @@ def phase_profile(torch, weights: str = "bfloat16", overlap: bool = True) -> dic
     client = build_client(torch, weights, overlap)
     torch.cuda.synchronize()
     texts = prompts()
+    reset_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         resps, wall = asyncio.run(_serve_and_stop(client, texts))
         torch.cuda.synchronize()
+    launched = counts()
     check_served(client, resps, len(texts))
     classes: dict[str, list] = {}
     by_name: dict[str, float] = {}
@@ -1747,15 +1936,37 @@ def phase_profile(torch, weights: str = "bfloat16", overlap: bool = True) -> dic
                 ("decode_attention_mma_kernel<", "decode_attention" + int8)]
         if weights == "int8":  # K5: decode rows on mma.sync, verify and prefill rows on wgmma
             want += [("qmm_mma_kernel(", "qmm"), ("qmm_wgmma_kernel<", "qmm")]
+        if weights == "mixed":  # W1 and its tile list on the mixed steps
+            want += [(RAGGED_KERNEL, "ragged_attention"), (PLAN_KERNEL, "ragged_plan")]
     missed = [cls for pat, cls in want
               if not any(pat in n and kernel_class(n, weights == "int8") == cls
                          for n in by_name)]
     if old or missed:
         raise AssertionError(f"{weights} profile: no tensor-core kernel for {missed}, "
                              f"or a removed instantiation ran: {old[:1]}")
+    launches_by_kernel = {}
+    if weights == "mixed":
+        # Each W1 call is one ragged kernel, each mixed forward one tile list
+        # kernel, and K2's tensor-core kernel runs once per K2 call: only the
+        # split path's chunk calls (prefill before any decode, verify), none
+        # for the mixed steps.
+        launches_by_kernel = {
+            pat: sum(1 for e in prof.events() if e.device_type ==
+                     torch.autograd.DeviceType.CUDA and pat in e.name)
+            for pat in (RAGGED_KERNEL, PLAN_KERNEL, "chunk_attention_mma_kernel<")}
+        if (launches_by_kernel[RAGGED_KERNEL] != launched["paged_ragged_attention"]
+                or launches_by_kernel[PLAN_KERNEL] != launched["ragged_plan"]
+                or launches_by_kernel["chunk_attention_mma_kernel<"]
+                != launched["paged_chunk_attention"]):
+            raise AssertionError(f"mixed profile: kernels {launches_by_kernel} against the "
+                                 f"wrappers' counts {launched}")
     busy = sum(v[0] for v in classes.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     return {"phase": phase_name(weights, overlap) + "_profile",
+            **({"launches_by_kernel": launches_by_kernel,
+                "wrapper_launches": {x: launched[x] for x in (
+                    "ragged_plan", "paged_ragged_attention", "paged_chunk_attention")}}
+               if launches_by_kernel else {}),
             "wall_ms": wall * 1e3,
             "device_busy_ms": busy,
             "idle_share": (1.0 - busy / (wall * 1e3)) if busy else None,
@@ -1782,7 +1993,8 @@ def phase_witness(torch, pa, weights: str, served: dict) -> dict:
     version on the same inputs (f32 throughout, rounded once), each call's
     result held against the other at TOL (fails beyond it). The calls: chunk
     and decode attention (``models.llama``), with int8 weights also K5
-    (``qmm_int8``); on the page-split mesh the
+    (``qmm_int8``), with mixed dispatch also W1's launch and its tile list
+    (the list exactly, record for record); on the page-split mesh the
     chunk and decode partials (``parallel.kv_split``), their (acc, m, l)
     each. The first run serves the kernel's result, as the serving phase
     did; the second serves the plain version's, which shows how far the
@@ -1795,6 +2007,9 @@ def phase_witness(torch, pa, weights: str, served: dict) -> dict:
 
     def plain_chunk(q, k, v, tables, ctx, pos, ps):
         return pa.plain_paged_attention(q, k, v, tables, ctx, pos[:, 0].contiguous(), ps)
+
+    def plain_ragged(q, k, v, tables, ctx, pos, rows, plan, ps, rq):
+        return pa.plain_ragged_attention(q, k, v, tables, ctx, pos, rows, ps, rq)
 
     def plain_decode(q, k, v, tables, ctx, ps):
         return pa.plain_paged_attention(q[:, None], k, v, tables, ctx, None, ps)[:, 0]
@@ -1814,8 +2029,9 @@ def phase_witness(torch, pa, weights: str, served: dict) -> dict:
     else:
         targets = [(llama, "paged_chunk_attention", plain_chunk),
                    (llama, "paged_decode_attention", plain_decode)]
-        if weights == "mixed":  # W1's launch, on the blocks' gathered tables
-            targets.append((llama, "ragged_block_attention", plain_chunk))
+        if weights == "mixed":  # W1's tile list and its launch on the rows' tables
+            targets += [(llama, "ragged_plan", pa.plain_ragged_plan),
+                        (llama, "ragged_tile_attention", plain_ragged)]
         if weights == "int8":  # K5: every int8 weight product of M <= 256
             targets.append((llama, "qmm_int8", qmm.plain_qmm_int8))
     seen = {attr: {"calls": 0, "calls_beyond_tol": 0, "max_abs_err": 0.0, "finite": True}
@@ -1825,13 +2041,17 @@ def phase_witness(torch, pa, weights: str, served: dict) -> dict:
     def checked(attr, kernel, plain):
         def call(*args):
             out, ref = kernel(*args), plain(*args)
-            outs, refs = (out, ref) if isinstance(out, tuple) else ((out,), (ref,))
+            exact = isinstance(out, pa.RaggedPlan)  # a tile list: record for record
+            if exact:
+                outs, refs = (out.tiles, out.live, out.weight), (ref.tiles, ref.live, ref.weight)
+            else:
+                outs, refs = (out, ref) if isinstance(out, tuple) else ((out,), (ref,))
             rec = seen[attr]
             rec["calls"] += 1
             beyond = False
             for o, r in zip(outs, refs):
                 over, diff = excess(o, r, "bfloat16")
-                beyond |= float(over.max()) > 0
+                beyond |= float((diff if exact else over).max()) > 0
                 rec["max_abs_err"] = max(rec["max_abs_err"], float(diff.max()))
                 rec["finite"] &= bool(o.isfinite().all())
             rec["calls_beyond_tol"] += int(beyond)
@@ -1877,15 +2097,15 @@ async def _serve_and_stop(client, texts):
         await client.shutdown()
 
 
-# Phases 7 to 9 of the tree in the working directory, by its own
-# chip_smoke.py, one JSON line each (--serve-ab); a first serving run of
-# each configuration, not recorded, builds the kernels and warms the
-# process.
+# The serving phases of the configurations in argv (phase_engine's
+# weights) of the tree in the working directory, by its own chip_smoke.py,
+# one JSON line each (--serve-ab); a first serving run of each
+# configuration, not recorded, builds the kernels and warms the process.
 _SERVE_CHILD = """
 import json, sys, torch
 sys.path.insert(0, ".")
 import chip_smoke as cs
-for w in ("bfloat16", "int8"):
+for w in sys.argv[1:]:
     cs.phase_engine(torch, weights=w)
     e = cs.phase_engine(torch, weights=w)
     e.pop("greedy_tokens")
@@ -1895,15 +2115,16 @@ for w in ("bfloat16", "int8"):
 """
 
 
-def serve_ab(other: Path) -> int:
-    """Phases 7 to 9 of ``other`` and of this tree, in the order other,
-    this, this, other, each round in a fresh process; a summary line per
-    phase on stdout, every line in ``OUT_DIR/serve_ab.jsonl``."""
+def serve_ab(other: Path, weights: list[str]) -> int:
+    """The serving phases of ``weights`` (``phase_engine``'s configurations)
+    of ``other`` and of this tree, in the order other, this, this, other,
+    each round in a fresh process; a summary line per phase on stdout, every
+    line in ``OUT_DIR/serve_ab.jsonl``."""
     log = OUT_DIR / "serve_ab.jsonl"
     log.write_text("")
     for rnd, (tag, tree) in enumerate((("other", other), ("this", ROOT), ("this", ROOT),
                                        ("other", other))):
-        proc = subprocess.run([sys.executable, "-c", _SERVE_CHILD], cwd=tree,
+        proc = subprocess.run([sys.executable, "-c", _SERVE_CHILD, *weights], cwd=tree,
                               capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             print(f"chip_smoke: serving in {tree} failed:\n{proc.stderr[-4000:]}",
@@ -1915,10 +2136,140 @@ def serve_ab(other: Path) -> int:
             d = {"tree": tag, "round": rnd, **json.loads(line)}
             with log.open("a") as f:
                 f.write(json.dumps(d) + "\n")
-            keys = ("tokens_per_s", "ttft_ms", "wall_ms", "device_busy_ms", "idle_share",
-                    "by_class_ms")
+            keys = ("tokens_per_s", "ttft_ms", "wall_s", "wall_ms", "device_busy_ms",
+                    "idle_share", "by_class_ms", "max_memory_allocated")
             print(json.dumps({k: d[k] for k in ("tree", "round", "phase", *keys) if k in d}),
                   flush=True)
+    return 0
+
+
+# The attention kernel phases of the tree in the working directory, by its
+# own chip_smoke.py (--kernel-ab): device ms of K1 (decode input), K2 (4 x 512
+# prefill, T=8 verify, one-row prefill at 4096) and W1's five ragged cases
+# (each tree's "device_ms" of its ragged case: K2's kernel at [N / 8, 8] with
+# the two block gathers before this tree, the ragged kernel's per-layer
+# launch here).
+_KERNEL_CHILD = """
+import json, sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from runbookai_tpu_torch.ops import paged_attention as pa
+cs.phase_build()
+dec = cs.phase_decode(pa, torch)["bfloat16"]
+chk = cs.phase_chunk(pa, torch)["bfloat16"]
+rag = cs.phase_ragged(pa, torch)
+row = {"K1_decode": dec["device_ms"], "K2_prefill": chk["device_ms"],
+       "K2_verify": chk["verify"]["device_ms"],
+       "K2_one_row_prefill": chk["prefill_one_row"]["device_ms"]}
+row.update({"W1_" + k: rag[k]["device_ms"] for k in ("served", "long", "int8", "group7", "hd64")})
+print(json.dumps(row), flush=True)
+"""
+
+
+def kernel_ab(other: Path) -> int:
+    """The attention kernel phases of ``other`` and of this tree, in the
+    order other, this, this, other, each in a fresh process; each run's
+    device times and, per key, this tree's mean over the other's, in
+    ``OUT_DIR/kernel_ab.jsonl``."""
+    out = OUT_DIR / "kernel_ab.jsonl"
+    out.write_text("")
+    runs: dict[str, list] = {"other": [], "this": []}
+    for tree, which in ((other, "other"), (ROOT, "this"), (ROOT, "this"), (other, "other")):
+        proc = subprocess.run([sys.executable, "-c", _KERNEL_CHILD], cwd=tree,
+                              capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+            return proc.returncode
+        row = json.loads(proc.stdout.strip().splitlines()[-1])
+        runs[which].append(row)
+        line = json.dumps({"tree": which, **row})
+        print(line, flush=True)
+        with out.open("a") as f:
+            f.write(line + "\n")
+    ratio = {key: sum(r[key] for r in runs["this"]) / sum(r[key] for r in runs["other"])
+             for key in runs["this"][0]}
+    line = json.dumps({"this_over_other": ratio})
+    print(line, flush=True)
+    with out.open("a") as f:
+        f.write(line + "\n")
+    return 0
+
+
+def mixed_forward_times(torch) -> dict:
+    """One mixed forward (``forward_ragged_impl``) of ENGINE_MODEL at full
+    width and depth, random bf16 weights from seed 0, on the ragged phase's
+    "served" batch (8 decode rows at the served contexts and a 512-token
+    prefill at offset 4096: N = 576, 13 rows) over a 32-layer pool: CUDA
+    events over back-to-back forwards, the profiler's device time, and the
+    host's time to issue one forward (no sync). Uses the package of the
+    working directory, so that two trees are timed by one measurement."""
+    from runbookai_tpu_torch.models import llama
+
+    cfg = llama.get_config(ENGINE_MODEL)
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = llama.init_params(cfg, torch.bfloat16, dev, gen)
+    _, k, v, tables, ctx, pos, rows, _ = ragged_inputs(torch, dev, gen, torch.bfloat16, "served",
+                                                       cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+    kv_k = k[None].expand(cfg.n_layers, *k.shape).contiguous()
+    kv_v = v[None].expand(cfg.n_layers, *v.shape).contiguous()
+    del k, v
+    tokens = torch.randint(0, cfg.vocab_size, (pos.numel(),), generator=gen, device=dev)
+    sel = torch.cat([torch.arange(B, device=dev) * RQ,
+                     torch.tensor([B * RQ + MIX_PF_TOKENS - 1], device=dev)])
+
+    def forward():
+        return llama.forward_ragged_impl(params, cfg, tokens, pos, rows, kv_k, kv_v, tables,
+                                         ctx, sel, PS, ragged_block=RQ)
+
+    logits = forward()
+    torch.cuda.synchronize()
+    if not bool(logits.isfinite().all()):
+        raise AssertionError("mixed forward: non-finite logits")
+    return {"ms": time_ms(forward, iters=10, warmup=2), "device_ms": device_ms(forward, iters=3),
+            "host_ms": host_ms(forward, iters=10), "layers": cfg.n_layers,
+            "tokens": pos.numel()}
+
+
+# One mixed forward of the tree in the working directory (--forward-ab),
+# measured by this tree's mixed_forward_times (its path in argv[1]).
+_FORWARD_CHILD = """
+import importlib.util, json, sys, torch
+sys.path.insert(0, ".")
+spec = importlib.util.spec_from_file_location("chip_smoke_measure", sys.argv[1])
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+print(json.dumps(cs.mixed_forward_times(torch)), flush=True)
+"""
+
+
+def forward_ab(other: Path) -> int:
+    """One mixed forward of ``other`` and of this tree (the same inputs and
+    weights, measured by this file's :func:`mixed_forward_times`), in the
+    order other, this, this, other, each in a fresh process; each run's
+    times and this tree's mean over the other's in
+    ``OUT_DIR/forward_ab.jsonl``."""
+    out = OUT_DIR / "forward_ab.jsonl"
+    out.write_text("")
+    runs: dict[str, list] = {"other": [], "this": []}
+    for tree, which in ((other, "other"), (ROOT, "this"), (ROOT, "this"), (other, "other")):
+        proc = subprocess.run([sys.executable, "-c", _FORWARD_CHILD, str(Path(__file__))],
+                              cwd=tree, capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+            return proc.returncode
+        row = json.loads(proc.stdout.strip().splitlines()[-1])
+        runs[which].append(row)
+        line = json.dumps({"tree": which, **row})
+        print(line, flush=True)
+        with out.open("a") as f:
+            f.write(line + "\n")
+    ratio = {key: sum(r[key] for r in runs["this"]) / sum(r[key] for r in runs["other"])
+             for key in ("ms", "device_ms", "host_ms")}
+    line = json.dumps({"this_over_other": ratio})
+    print(line, flush=True)
+    with out.open("a") as f:
+        f.write(line + "\n")
     return 0
 
 
@@ -1971,7 +2322,11 @@ def main() -> int:
 
     OUT_DIR.mkdir(exist_ok=True)
     if sys.argv[1:2] == ["--serve-ab"]:
-        return serve_ab(Path(sys.argv[2]).resolve())
+        return serve_ab(Path(sys.argv[2]).resolve(), sys.argv[3:] or ["bfloat16", "int8"])
+    if sys.argv[1:2] == ["--kernel-ab"]:
+        return kernel_ab(Path(sys.argv[2]).resolve())
+    if sys.argv[1:2] == ["--forward-ab"]:
+        return forward_ab(Path(sys.argv[2]).resolve())
     if sys.argv[1:2] == ["--overlap-ab"]:
         print(json.dumps(phase_build()), flush=True)
         return overlap_ab()
@@ -2072,22 +2427,39 @@ def main() -> int:
                         "replaces": f"{pallas}:397", "launches": served["launches"][name],
                         "max_abs_err": main_path["max_abs_err"],
                         "f32_cuda_core_max_abs_err": res["float32"]["max_abs_err"],
-                        **{f: main_path[f] for f in fields},
+                        **{f: main_path[f] for f in fields + ("device_ms", "cold_ms")},
                         "splits": main_path["splits"],
                         **{kind: main_path[kind] for kind in MMA_KINDS
                            if kind in main_path and kind != "prefill"}})
-    # W1: K2's tensor-core kernel at [N / 8, 8] on the mixed batch, at the
+    # W1: the ragged kernel's per-layer launch on the mixed batch, at the
     # served contexts; the long-context, int8-pool and other geometries'
-    # inputs beside it. Launches from engine_mixed.
-    rag_keys = ("max_abs_err", "pad_max_abs", "launches_per_call", "splits", "ms",
-                "device_ms", "host_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    kernels.append({"name": "paged_ragged_attention", "route": "cuda", "source": mma_src,
+    # inputs beside it, and K2's one-row prefill of the same 512 tokens.
+    # Launches from engine_mixed.
+    rag_keys = ("max_abs_err", "pad_max_abs", "launches_per_call", "splits", "tiles",
+                "ms", "device_ms", "cold_ms", "host_ms", "call_device_ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms")
+    kernels.append({"name": "paged_ragged_attention", "route": "cuda",
+                    "source": "runbookai_tpu_torch/csrc/ragged_attention.cu",
                     "replaces": f"{pallas}:468",
                     "launches": mixed["launches"]["paged_ragged_attention"],
                     **{f: rag["served"][f] for f in rag_keys},
                     "max_abs_err": rag["max_abs_err"],
                     **{kind: {f: rag[kind][f] for f in rag_keys}
-                       for kind in ("long", "int8", *RAGGED_GEOMETRIES)}})
+                       for kind in ("long", "int8", *RAGGED_GEOMETRIES)},
+                    "k2_one_row_prefill": rag["k2_one_row_prefill"]})
+    # W1's tile list, one launch a mixed forward, on the same batches; its
+    # plain version is the tensor-op list on the card. Launches from
+    # engine_mixed.
+    plan_keys = ("max_abs_err", "live", "ms", "device_ms", "cold_ms", "host_ms", "plain_ms",
+                 "plain_device_ms", "plain_host_ms", "bound_ms", "bound_by", "library_ms")
+    kernels.append({"name": "ragged_plan", "route": "cuda",
+                    "source": "runbookai_tpu_torch/csrc/ragged_plan.cu",
+                    "replaces": f"{pallas}:468", "launches": mixed["launches"]["ragged_plan"],
+                    **{f: rag["served"]["plan"][f] for f in plan_keys},
+                    "max_abs_err": max(rag[kind]["plan"]["max_abs_err"]
+                                       for kind in (*RAGGED_KINDS, "int8", *RAGGED_GEOMETRIES)),
+                    **{kind: {f: rag[kind]["plan"][f] for f in plan_keys}
+                       for kind in ("long", *RAGGED_GEOMETRIES)}})
     # The second pass of a split K2 call, on the verify input's partials.
     merge = chk["bfloat16"]["merge"]
     kernels.append({"name": "paged_chunk_merge", "route": "cuda", "source": mma_src,
@@ -2095,7 +2467,7 @@ def main() -> int:
                     "launches_int8": eng8["launches"]["paged_chunk_merge"],
                     "max_abs_err": max(merge["max_abs_err"],
                                        chk8["bfloat16"]["merge"]["max_abs_err"]),
-                    **{f: merge[f] for f in fields}, "splits": merge["splits"]})
+                    **{f: merge[f] for f in fields + ("cold_ms",)}, "splits": merge["splits"]})
     # The page-split partial kernels per call as the tp=16 path makes them
     # (one model group's heads over one page shard), the mean over both page
     # shards' calls; launches from engine_kv_split, one call per shard and

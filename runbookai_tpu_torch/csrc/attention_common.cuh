@@ -3,7 +3,8 @@
 // mma.sync, P split into two bf16 parts, the XOR swizzle of bf16 K/V tiles,
 // the keys of a tile (a run of table columns, or a page shard's owned pages),
 // the copy of one 64-key K/V tile from a paged pool and the widening of an
-// int8 tile to bf16.
+// int8 tile to bf16; and Hopper's wgmma descriptor, accumulator fence and
+// mbarriers (qmm.cu, ragged_attention.cu).
 
 #pragma once
 
@@ -175,6 +176,51 @@ __device__ __forceinline__ void widen_keys(const int8_t* stage, __nv_bfloat16* w
 template <int HD, int THREADS>
 __device__ __forceinline__ void widen_tile(const int8_t* stage, __nv_bfloat16* wide) {
   widen_keys<HD, THREADS, kKeys>(stage, wide, 0, threadIdx.x);
+}
+
+// ---- Hopper: wgmma accumulators, shared-memory descriptors, mbarriers (qmm.cu,
+// ragged_attention.cu).
+
+// Keep the compiler from moving accesses of the accumulators across the wgmma waits.
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptor of a K-major bf16 tile with 128-byte rows, 128-byte
+// swizzle, 8-row groups 1024 bytes apart, starting at `p` (1024-byte aligned).
+__device__ __forceinline__ uint64_t desc128(const void* p) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n"
+               ::"r"(smem_addr(bar)) : "memory");
+}
+
+// Arrive on `bar` once every cp.async this thread has started is complete.
+__device__ __forceinline__ void mbar_arrive_cp_async(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
 }
 
 }  // namespace

@@ -10,12 +10,12 @@
 // runbookai_tpu/parallel/kv_split.py for bf16 queries over a bf16 pool slice.
 // f32 queries take the CUDA-core kernels of paged_attention.cu.
 //
-// The same kernel, unchanged, also replaces the Pallas paged_ragged_attention
-// (W1) of the same file: the mixed prefill+decode batch in 8-token blocks,
-// each owned by one row, is one call at [N / 8, 8] with each block's table
-// row and context gathered on the device beforehand
-// (ops/paged_attention.py ragged_block_attention). A pad block (ctx 0) gives
-// zeros; at the serving geometry the call makes 576 blocks and no split.
+// The Pallas paged_ragged_attention (W1) of the same file has a kernel of its
+// own, ragged_attention.cu. This kernel serves the mixed batch on a
+// tensor-parallel mesh: per head shard, one call at [N / 8, 8] with each
+// 8-token block's table row and context gathered beforehand
+// (ops/paged_attention.py paged_chunk_attention_tp), where a pad block (ctx
+// 0) gives zeros.
 //
 // What it computes, for query row (token t, head h) of sequence b: an online
 // (flash) softmax in f32 over the first ctx_lens[b] cached tokens, read

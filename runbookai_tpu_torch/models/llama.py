@@ -39,7 +39,10 @@ from runbookai_tpu_torch.ops.paged_attention import (
     paged_chunk_attention_tp,
     paged_decode_attention,
     paged_decode_attention_tp,
-    ragged_block_attention,
+    RaggedPlan,
+    ragged_plan,
+    ragged_route,
+    ragged_tile_attention,
 )
 from runbookai_tpu_torch.ops.qmm import qmm_eligible, qmm_int8
 from runbookai_tpu_torch.ops.rope import rope_cos_sin, rotate
@@ -394,6 +397,21 @@ def _layer(stacked: Any, i: int) -> Any:
     return stacked[i]
 
 
+@dataclass(frozen=True)
+class RaggedRows:
+    """W1's inputs in a mixed forward, fixed for its layers: the rows' own
+    page tables and contexts, the flat positions and row ids, the block
+    size, and the tile list (:func:`ragged_plan`; None where the ragged
+    kernel does not run: CPU tensors, f32 activations)."""
+
+    page_tables: torch.Tensor  # [R, P] int32
+    ctx_lens: torch.Tensor  # [R] int32
+    q_positions: torch.Tensor  # [N] int32
+    row_ids: torch.Tensor  # [N] int32
+    ragged_block: int
+    plan: Optional[RaggedPlan]
+
+
 @torch.no_grad()
 def forward_hidden(
     params: Params,
@@ -406,7 +424,7 @@ def forward_hidden(
     ctx_lens: torch.Tensor,  # [B] int32 cache length AFTER this chunk
     page_size: int,
     mesh: Optional[Mesh] = None,
-    ragged: bool = False,
+    ragged: Optional[RaggedRows] = None,
 ) -> torch.Tensor:
     """Transformer stack over one paged chunk, WITHOUT the LM head.
 
@@ -414,9 +432,12 @@ def forward_hidden(
     layer's chunk K/V are written into its pool slice before attention.
     T = 1 runs the decode kernel, T > 1 the chunk kernel; on CPU tensors
     both run their plain versions. ``ragged`` marks the blocks of a mixed
-    batch (:func:`forward_ragged_impl`), whose attention is W1's launch
-    (:func:`ragged_block_attention`). With a ``mesh``, ``params`` and the
-    pools hold one entry per shard (:func:`_forward_hidden_sharded`)."""
+    batch (:func:`forward_ragged_impl`): ``page_tables`` and ``ctx_lens``
+    are then gathered per block for the K/V writes, and each layer's
+    attention is W1's launch (:func:`ragged_tile_attention`) on the rows'
+    own tables and contexts and the batch's tile list. With a ``mesh``,
+    ``params`` and the pools hold one entry per shard
+    (:func:`_forward_hidden_sharded`)."""
     if mesh is not None:
         return _forward_hidden_sharded(params, cfg, tokens, positions, kv_k, kv_v,
                                        page_tables, ctx_lens, page_size, mesh)
@@ -438,9 +459,11 @@ def forward_hidden(
         v = v.reshape(b, t, n_kv, hd)
         write_kv_pages_batch(k_pool, k, positions, page_tables, page_size)
         write_kv_pages_batch(v_pool, v, positions, page_tables, page_size)
-        if ragged:
-            attn = ragged_block_attention(q, k_pool, v_pool, page_tables, ctx_lens,
-                                          positions, page_size)
+        if ragged is not None:
+            attn = ragged_tile_attention(
+                q.reshape(b * t, n_q, hd), k_pool, v_pool, ragged.page_tables,
+                ragged.ctx_lens, ragged.q_positions, ragged.row_ids, ragged.plan,
+                page_size, ragged.ragged_block).reshape(b, t, n_q, hd)
         elif t == 1:
             attn = paged_decode_attention(q[:, 0], k_pool, v_pool,
                                           page_tables, ctx_lens, page_size)
@@ -499,20 +522,32 @@ def forward_ragged_impl(
     in the null page) and either their run's row id or a null row with
     ``ctx_len = 0``. Each block then belongs to one row, so the stack runs
     as a ``[N / ragged_block, ragged_block]`` chunked forward with the
-    tables, contexts and positions gathered per block ONCE, above the layer
-    loop; each layer's attention is W1's launch
-    (:func:`ragged_block_attention`). On a tensor-parallel ``mesh`` (seq =
+    tables and contexts gathered per block for the K/V writes; each layer's
+    attention is W1's launch (:func:`ragged_tile_attention`) on the rows'
+    own tables. Where that launch is the ragged kernel (bf16 activations on
+    the card) its tile list (:func:`ragged_plan`, one kernel launch) is
+    built ONCE, above the layer loop. On a tensor-parallel ``mesh`` (seq =
     1) attention runs per head shard through
-    :func:`paged_chunk_attention_tp`. Returns logits [S, vocab] float32 for
-    the ``sel_idx`` tokens only; the pools are updated in place."""
+    :func:`paged_chunk_attention_tp` (K2 at ``[N / ragged_block,
+    ragged_block]``). Returns logits [S, vocab] float32
+    for the ``sel_idx`` tokens only; the pools are updated in place."""
     n = tokens.shape[0]
     nb = n // ragged_block
     block_rows = row_ids.reshape(nb, ragged_block)[:, 0]
+    ragged = None
+    if mesh is None:
+        plan = None
+        if tokens.is_cuda and ragged_route(params["embed"].dtype, cfg.head_dim,
+                                           cfg.n_heads // cfg.n_kv_heads,
+                                           ragged_block) == "mma":
+            plan = ragged_plan(row_ids, ctx_lens, positions, cfg.n_heads, cfg.n_kv_heads,
+                               cfg.head_dim, page_tables.shape[1], page_size, ragged_block)
+        ragged = RaggedRows(page_tables, ctx_lens, positions, row_ids, ragged_block, plan)
     h = forward_hidden(params, cfg, tokens.reshape(nb, ragged_block),
                        positions.reshape(nb, ragged_block), kv_k, kv_v,
                        page_tables.index_select(0, block_rows),
                        ctx_lens.index_select(0, block_rows), page_size, mesh=mesh,
-                       ragged=True)
+                       ragged=ragged)
     h_sel = h.reshape(n, h.shape[-1])[sel_idx]
     return lm_head_logits(params, cfg, h_sel, mesh=mesh)
 

@@ -59,6 +59,13 @@ SIGNATURES = {
     # q, k, v, tables, ctx_lens, acc, m, l, ws, counters, B, n_q, n_kv, hd, ps,
     # P, splits, cols, shard, pages_local, scale, stream
     "rb_paged_decode_attention_partial_mma": [_p] * 10 + [_i] * 10 + [_f, _p],
+    # q, k, v, k_scale, v_scale, tables, ctx_lens, q_pos, tiles, live, out, ws,
+    # counters, ctas, n_q, n_kv, hd, ps, P, rq, keys_per_split, max_splits,
+    # scale, kv_dtype, stream
+    "rb_paged_ragged_attention": [_p] * 13 + [_i] * 9 + [_f, _i, _p],
+    # row_ids, q_pos, ctx_lens, tiles, live, weight, nb, rq, group, n_kv,
+    # key_max, keys_per_split, split_runs, per_head, stream
+    "rb_ragged_plan": [_p] * 6 + [_i] * 8 + [_p],
     # x, q, s, out, ws, counters, M, K, N, k_slice, tile_n, x_dtype, stream
     "rb_qmm_int8": [_p] * 6 + [_i] * 6 + [_p],
 }
@@ -70,7 +77,7 @@ _lib: Optional[ctypes.CDLL] = None
 
 # Per (device, stream): the int32 counters (zero between launches) and f32
 # split partials of the kernels that merge their splits in the launch (the
-# decode kernel, the chunk partial, the int8 matmul), grown when a larger
+# decode kernel, the chunk partial, W1, the int8 matmul), grown when a larger
 # shape comes. Calls on one stream run in order, so they share it.
 _split_workspaces: dict = {}
 

@@ -1,7 +1,8 @@
 """Paged attention kernels of the serving forward and their plain versions.
 
 CUDA kernels (``csrc/paged_attention.cu``, ``csrc/chunk_attention.cu``,
-``csrc/decode_attention.cu``) replace the Pallas TPU kernels of
+``csrc/decode_attention.cu``, ``csrc/ragged_attention.cu`` with
+``csrc/ragged_plan.cu``) replace the Pallas TPU kernels of
 ``runbookai_tpu/ops/paged_attention_pallas.py``:
 
 - :func:`paged_decode_attention` — one query token per sequence (T = 1);
@@ -20,9 +21,14 @@ CUDA kernels (``csrc/paged_attention.cu``, ``csrc/chunk_attention.cu``,
   take the CUDA-core kernel of ``paged_attention.cu``.
 - :func:`paged_ragged_attention` — a flat mixed prefill+decode batch in
   8-token blocks, each owned by one row; replaces Pallas
-  ``paged_ragged_attention`` (W1). It gathers each block's table and
-  context on the device and makes one chunk-kernel call at ``[N / 8, 8]``
-  (:func:`ragged_block_attention`).
+  ``paged_ragged_attention`` (W1). bf16 queries take the ragged kernel of
+  ``ragged_attention.cu``: a tile list over the batch's runs
+  (:func:`ragged_plan`, one launch of ``ragged_plan.cu``'s kernel; the
+  ragged forward builds it once for all its layers), then one launch
+  (:func:`ragged_tile_attention`) whose prefill tiles of 128 rows run on
+  wgmma and whose one-block tiles on mma.sync, split over key ranges and
+  merged in the same launch; f32 queries take the CUDA-core chunk kernel
+  at ``[N / 8, 8]``.
 - :func:`paged_decode_attention_partial` — the decode kernel over one page
   shard's slice of the pool, returning the un-normalised flash partials
   ``(acc, m, l)`` for the merge across page shards; replaces Pallas
@@ -37,7 +43,8 @@ CUDA kernels (``csrc/paged_attention.cu``, ``csrc/chunk_attention.cu``,
 
 :func:`paged_decode_attention_tp` and :func:`paged_chunk_attention_tp` run
 the first two per head shard of a tensor-parallel mesh, as the JAX
-package's ``shard_map`` wrappers of the same names do.
+package's ``shard_map`` wrappers of the same names do; the mixed forward on
+such a mesh runs K2 at ``[N / 8, 8]`` per head shard.
 
 A pool is a float32 or bfloat16 tensor, or an int8 pool: a ``(values int8,
 scales float32)`` tuple with one absmax scale per (token, kv head)
@@ -78,12 +85,14 @@ launches = {"paged_decode_attention": 0, "paged_chunk_attention": 0,
             "paged_decode_attention_partial": 0, "paged_chunk_attention_partial": 0}
 # Launches of the merge of a split chunk call (:func:`chunk_merge`).
 merge_launches = {"paged_chunk_merge": 0}
+# Launches of W1's tile list (:func:`ragged_plan`).
+plan_launches = {"ragged_plan": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
 def reset_launches() -> None:
-    for counts in (launches, merge_launches):
+    for counts in (launches, merge_launches, plan_launches):
         for name in counts:
             counts[name] = 0
 
@@ -227,7 +236,9 @@ def _split(k_flat: Pool, v_flat: Pool):
 
 
 def _check(q, k_flat, v_flat, k_scale, v_scale, page_tables, ctx_lens, page_size,
-           extra=()):
+           extra=(), rows: Optional[int] = None):
+    """Checks of a kernel call on CUDA tensors; ``rows`` is the tables' row
+    count where it is not q's leading dimension (the ragged call)."""
     if q.device.type != "cuda":
         raise ValueError(f"paged attention runs on cuda or cpu tensors, got {q.device}")
     scales = () if k_scale is None else (k_scale, v_scale)
@@ -259,7 +270,7 @@ def _check(q, k_flat, v_flat, k_scale, v_scale, page_tables, ctx_lens, page_size
                          f"pages of {page_size} x [n_kv, {hd}]")
     if n_q % k_flat.shape[1]:
         raise ValueError(f"{n_q} query heads do not group over {k_flat.shape[1]} kv heads")
-    b = q.shape[0]
+    b = q.shape[0] if rows is None else rows
     if page_tables.ndim != 2 or page_tables.shape[0] != b or ctx_lens.shape != (b,):
         raise ValueError("page tables must be [B, P] and ctx_lens [B]")
 
@@ -549,6 +560,218 @@ def _chunk_call(q, k_flat, v_flat, page_tables, ctx_lens, q_positions, page_size
 
 # --------------------------------------------------------- ragged (W1)
 
+# Query rows of a prefill tile of the ragged kernel: two wgmma warpgroups of 64.
+RAGGED_TILE_ROWS = 128
+# A one-block tile's keys split into at most this many ranges, of at least
+# RAGGED_MIN_SPLIT_KEYS keys each (whole 64-key tiles).
+RAGGED_MAX_SPLITS = 8
+RAGGED_MIN_SPLIT_KEYS = 512
+# One-block runs of a batch that split: the first this many (in the batch's
+# order) whose keys exceed one split; later ones walk all their keys in one
+# tile. Bounds the split workspace by shapes: 16 runs of 8 kv heads in 8
+# splits are 1,024 tiles, several waves of the card's 132 SMs.
+RAGGED_SPLIT_RUNS = 16
+# int32 fields of a tile record: row, first token of the run, kv head, first
+# row, row count, key bound, split, split count (0: a prefill tile), the
+# split run's workspace slot.
+RAGGED_FIELDS = 9
+
+
+@dataclass(frozen=True)
+class RaggedShape:
+    """What the ragged kernel's tile list and launch take from shapes alone
+    (never from the data, so the list is built without a host sync and a
+    CUDA graph can hold the launch)."""
+
+    rq: int  # tokens a block (the engine's ragged block, 8)
+    group: int  # query heads per kv head
+    capacity: int  # tile records: an upper bound of the live tiles
+    ctas: int  # persistent blocks: min(capacity, SMS)
+    keys_per_split: int  # keys of a one-block tile's split
+    max_splits: int  # splits of a one-block tile at the table's width
+    split_runs: int  # one-block runs that may split: min(N / rq, RAGGED_SPLIT_RUNS)
+    counters: int  # int32: 2 (the tile schedule) + one per (split run, kv head)
+    workspace_floats: int  # f32 split partials of every (split run, kv head, split)
+
+
+@functools.lru_cache(maxsize=256)
+def ragged_shape(n: int, n_q: int, n_kv: int, hd: int, p: int, page_size: int,
+                 rq: int = 8) -> RaggedShape:
+    """The shapes-only part of :func:`ragged_plan`. A one-block tile's keys
+    (at most ``P * page_size``) split into ranges of ``keys_per_split``: a
+    multiple of 64, at least ``RAGGED_MIN_SPLIT_KEYS``, so that a row as wide
+    as the table takes at most ``RAGGED_MAX_SPLITS``. The capacity bounds the
+    live tiles of any layout of ``N / rq`` blocks, per kv head: one tile a
+    one-block run, ``max_splits - 1`` more for each of at most
+    ``split_runs``, and ``ceil(L * rq * group / 128) <= L * rq * group / 128
+    + L / 2`` for a run of L >= 2 blocks."""
+    nb, group = n // rq, n_q // n_kv
+    keys = 64 * max(RAGGED_MIN_SPLIT_KEYS // 64, -(-p * page_size // (64 * RAGGED_MAX_SPLITS)))
+    max_splits = max(1, -(-p * page_size // keys))
+    split_runs = min(nb, RAGGED_SPLIT_RUNS)
+    per_head = nb + split_runs * (max_splits - 1) + -(-nb * rq * group // RAGGED_TILE_ROWS)
+    capacity = n_kv * per_head
+    return RaggedShape(rq, group, capacity, min(capacity, SMS), keys, max_splits, split_runs,
+                       2 + split_runs * n_kv,
+                       split_runs * n_kv * max_splits * rq * group * (hd + 2))
+
+
+@dataclass(frozen=True)
+class RaggedPlan:
+    """One mixed batch's tile list for the ragged kernel: built once per
+    forward (:func:`ragged_plan`) and reused by every layer's launch."""
+
+    shape: RaggedShape
+    tiles: torch.Tensor  # [capacity, RAGGED_FIELDS] int32, the live ones first, heaviest first
+    live: torch.Tensor  # [1] int32: live tiles
+    weight: torch.Tensor  # [capacity] int32: keys each tile walks (-1 past the live ones)
+
+
+def plain_ragged_plan(row_ids: torch.Tensor, ctx_lens: torch.Tensor,
+                      q_positions: torch.Tensor, n_q: int, n_kv: int, hd: int, p: int,
+                      page_size: int, ragged_block: int = 8) -> RaggedPlan:
+    """Plain version of the tile list's kernel (:func:`ragged_plan`), in
+    tensor ops on ``row_ids``' device (no host sync).
+
+    Blocks of ``ragged_block`` tokens with the same row and next to each
+    other form a run. A run of one block (a decode slot, a short chunk, a pad
+    block) is one tile of ``rq * group`` rows; the first ``split_runs`` such
+    runs whose keys exceed ``keys_per_split`` split over key ranges of that
+    many keys, each with its own workspace slot (its rank among them); a
+    longer run (a prefill chunk) is cut into tiles of up to 128 rows, its
+    (token, group head) rows flattened kv-major. Each tile is repeated for
+    every kv head. A tile's keys end at the row's context, the table's width
+    and its last query position (its block's first position plus the token's
+    place in the block, as the plain version reads it). The list is sorted
+    by the keys each tile walks, heaviest first, stably; the records past the
+    live count are zero, with weight -1."""
+    n = row_ids.shape[0]
+    rq = ragged_block
+    shape = ragged_shape(n, n_q, n_kv, hd, p, page_size, rq)
+    nb, group, ks = n // rq, shape.group, shape.keys_per_split
+    dev = row_ids.device
+    brow = row_ids.reshape(nb, rq)[:, 0].long()
+    bpos = q_positions.reshape(nb, rq)[:, 0].long()
+    idx = torch.arange(nb, device=dev)
+    start = torch.ones(nb, dtype=torch.bool, device=dev)
+    start[1:] = brow[1:] != brow[:-1]
+    run = torch.cumsum(start.long(), 0) - 1  # run of each block
+    # Per run (nb slots; the slots past the last run are empty): first block,
+    # length in blocks, row, context, key bound of its last token.
+    first = torch.full((nb,), nb - 1, dtype=torch.long, device=dev).scatter_reduce_(
+        0, run, idx, "amin")
+    length = torch.zeros(nb, dtype=torch.long, device=dev).scatter_add_(
+        0, run, torch.ones_like(run))
+    row = brow[first]
+    key_cap = ctx_lens.long()[row].clamp_max(p * page_size)
+    last_pos = bpos[(first + length - 1).clamp(0, nb - 1)] + rq - 1
+    run_hi = torch.minimum(key_cap, last_pos + 1).clamp_min(0)
+    small = length == 1
+    wide = small & (run_hi > ks)
+    slot = torch.cumsum(wide.long(), 0) - 1  # rank among the wide runs
+    split_run = wide & (slot < shape.split_runs)
+    count = torch.where(split_run, -(-run_hi // ks),
+                        torch.where(small, 1, -(-length * rq * group // RAGGED_TILE_ROWS)))
+    count = torch.where(length > 0, count, 0)
+    ends = torch.cumsum(count, 0)
+    # Tile i of a kv head: run r, the run's tile `local`.
+    per_head = shape.capacity // n_kv
+    i = torch.arange(per_head, device=dev)
+    r = torch.searchsorted(ends, i, right=True).clamp_max(nb - 1)
+    local = i - (ends[r] - count[r])
+    live = i < ends[-1]
+    t_small, t_split = small[r], split_run[r]
+    r0 = torch.where(t_small, 0, local * RAGGED_TILE_ROWS)
+    nr = torch.where(t_small, rq * group,
+                     (length[r] * rq * group - r0).clamp_max(RAGGED_TILE_ROWS))
+    tok_last = (r0 + nr - 1) // group  # the tile's last token, within the run
+    pos_last = bpos[(first[r] + tok_last // rq).clamp(0, nb - 1)] + tok_last % rq
+    hi = torch.where(t_small, torch.where(t_split, torch.minimum(run_hi[r], (local + 1) * ks),
+                                          run_hi[r]),
+                     torch.minimum(key_cap[r], pos_last + 1).clamp_min(0))
+    lo = torch.where(t_split, local * ks, 0)
+    zero = torch.zeros_like(r)
+    fields = torch.stack([row[r], first[r] * rq, zero, r0, nr, hi,
+                          torch.where(t_split, local, 0), torch.where(t_small, count[r], 0),
+                          torch.where(t_split, slot[r], 0)],
+                         dim=1)  # [per_head, RAGGED_FIELDS]
+    tiles = fields[:, None, :].repeat(1, n_kv, 1)
+    tiles[:, :, 2] = torch.arange(n_kv, device=dev)
+    tiles = torch.where(live[:, None, None], tiles, 0)
+    weight = torch.where(live, hi - lo, -1)[:, None].expand(per_head, n_kv).reshape(-1)
+    order = torch.sort(weight, descending=True, stable=True).indices
+    return RaggedPlan(shape, tiles.reshape(-1, RAGGED_FIELDS)[order].to(torch.int32).contiguous(),
+                      (live.sum() * n_kv).to(torch.int32).reshape(1),
+                      weight[order].to(torch.int32))
+
+
+def ragged_plan(row_ids: torch.Tensor, ctx_lens: torch.Tensor, q_positions: torch.Tensor,
+                n_q: int, n_kv: int, hd: int, p: int, page_size: int,
+                ragged_block: int = 8) -> RaggedPlan:
+    """The ragged kernel's tile list for one mixed batch (what
+    :func:`plain_ragged_plan` says, record for record). On CPU tensors: the
+    plain version. On CUDA tensors: one launch of ``ragged_plan.cu``'s
+    kernel, counted under ``ragged_plan`` (one CTA: the runs and their tile
+    counts from the blocks' rows, prefix sums, each tile's rank by weight,
+    the records written for every kv head; no host sync)."""
+    if row_ids.device.type == "cpu":
+        return plain_ragged_plan(row_ids, ctx_lens, q_positions, n_q, n_kv, hd, p, page_size,
+                                 ragged_block)
+    n = row_ids.shape[0]
+    shape = ragged_shape(n, n_q, n_kv, hd, p, page_size, ragged_block)
+    for x in (row_ids, ctx_lens, q_positions):
+        if x.dtype != torch.int32 or not x.is_contiguous() or x.device != row_ids.device:
+            raise ValueError("row_ids, ctx_lens and q_positions must be contiguous int32 "
+                             "tensors on one device")
+    if q_positions.shape != (n,) or n % ragged_block:
+        raise ValueError(f"q_positions must be [{n}] and {n} tokens whole blocks of "
+                         f"{ragged_block}")
+    tiles = torch.empty((shape.capacity, RAGGED_FIELDS), dtype=torch.int32,
+                        device=row_ids.device)
+    live = torch.empty(1, dtype=torch.int32, device=row_ids.device)
+    weight = torch.empty(shape.capacity, dtype=torch.int32, device=row_ids.device)
+    rc = library().rb_ragged_plan(
+        row_ids.data_ptr(), q_positions.data_ptr(), ctx_lens.data_ptr(), tiles.data_ptr(),
+        live.data_ptr(), weight.data_ptr(), n // ragged_block, ragged_block, shape.group,
+        n_kv, p * page_size, shape.keys_per_split, shape.split_runs,
+        shape.capacity // n_kv, torch.cuda.current_stream(row_ids.device).cuda_stream)
+    raise_on(rc, "ragged_plan")
+    plan_launches["ragged_plan"] += 1
+    return RaggedPlan(shape, tiles, live, weight)
+
+
+def plain_ragged_attention(q, k_flat: Pool, v_flat: Pool, page_tables, ctx_lens, q_positions,
+                           row_ids, page_size: int, ragged_block: int = 8) -> torch.Tensor:
+    """Plain version of W1: each block's table row and context gathered, then
+    :func:`plain_paged_attention` at ``[N / rq, rq]`` with positions
+    ``q_positions[block, 0] + t``. Returns [N, n_q, hd] in q's dtype."""
+    n, n_q, hd = q.shape
+    nb = n // ragged_block
+    rows = row_ids.reshape(nb, ragged_block)[:, 0]
+    out = plain_paged_attention(
+        q.reshape(nb, ragged_block, n_q, hd), k_flat, v_flat, page_tables.index_select(0, rows),
+        ctx_lens.index_select(0, rows),
+        q_positions.reshape(nb, ragged_block)[:, 0].contiguous(), page_size)
+    return out.reshape(n, n_q, hd)
+
+
+def ragged_route(q_dtype: torch.dtype, hd: int, group: int, ragged_block: int) -> str:
+    """The kernel a ragged call on CUDA tensors launches: ``"mma"`` (the
+    ragged kernel of ``ragged_attention.cu``) for bf16 queries with head_dim
+    64 or 128 whose one-block tiles (``ragged_block * group`` rows) fit 128
+    rows; ``"cuda_core"`` (``paged_attention.cu``'s chunk kernel at ``[N /
+    rq, rq]``) for f32 queries; any other call raises."""
+    if chunk_mma_eligible(q_dtype, hd):
+        if ragged_block * group > RAGGED_TILE_ROWS or ragged_block % 2:
+            raise ValueError(f"the ragged kernel takes blocks of an even number of tokens "
+                             f"times a GQA group of at most {RAGGED_TILE_ROWS} rows, not "
+                             f"{ragged_block} x {group}")
+        return "mma"
+    if q_dtype == torch.float32:
+        return "cuda_core"
+    raise ValueError(f"no ragged kernel takes {q_dtype} queries with head_dim {hd}: "
+                     f"bf16 needs head_dim 64 or 128 (chunk_mma_eligible)")
+
 
 def paged_ragged_attention(
     q: torch.Tensor,  # [N, n_q, hd] flat ragged token batch
@@ -566,41 +789,86 @@ def paged_ragged_attention(
     Layout contract (EngineCore._run_mixed upholds it): each row's
     token run is contiguous ascending and starts at a multiple of
     ``ragged_block``, so every block of ``ragged_block`` queries belongs
-    to one row. The block rows are gathered on the device (no host sync)
-    and the call is :func:`ragged_block_attention` at ``[N / ragged_block,
-    ragged_block]``: the chunk kernel with the q-block axis re-labelled,
-    as the Pallas ``paged_ragged_attention`` runs ``_chunk_kernel`` with
-    ``q_block = ragged_block``. A pad block (a null row, ``ctx_len = 0``)
-    gives zeros; pad tokens inside a row's last block act as later
-    queries, whose outputs the caller discards. Returns [N, n_q, hd]."""
-    n, n_q, hd = q.shape
-    nb = n // ragged_block
-    rows = row_ids.reshape(nb, ragged_block)[:, 0]
-    out = ragged_block_attention(
-        q.reshape(nb, ragged_block, n_q, hd), k_flat, v_flat,
-        page_tables.index_select(0, rows), ctx_lens.index_select(0, rows),
-        q_positions.reshape(nb, ragged_block), page_size)
-    return out.reshape(n, n_q, hd)
+    to one row. A pad block (a null row, ``ctx_len = 0``) gives zeros; pad
+    tokens inside a row's last block act as later queries at
+    ``q_positions[block, 0] + t``, whose outputs the caller discards. On CUDA
+    tensors: the call's tile list (:func:`ragged_plan`), then one launch of
+    the ragged kernel (:func:`ragged_tile_attention`); the ragged forward
+    builds the list once above its layer loop instead. Returns [N, n_q,
+    hd]."""
+    if q.device.type == "cpu":
+        return plain_ragged_attention(q, k_flat, v_flat, page_tables, ctx_lens, q_positions,
+                                      row_ids, page_size, ragged_block)
+    n_kv = (k_flat[0] if isinstance(k_flat, tuple) else k_flat).shape[1]
+    plan = None
+    if ragged_route(q.dtype, q.shape[2], q.shape[1] // n_kv, ragged_block) == "mma":
+        plan = ragged_plan(row_ids, ctx_lens, q_positions, q.shape[1], n_kv, q.shape[2],
+                           page_tables.shape[1], page_size, ragged_block)
+    return ragged_tile_attention(q, k_flat, v_flat, page_tables, ctx_lens, q_positions,
+                                 row_ids, plan, page_size, ragged_block)
 
 
-def ragged_block_attention(
-    q: torch.Tensor,  # [NB, ragged_block, n_q, hd]
+def ragged_tile_attention(
+    q: torch.Tensor,  # [N, n_q, hd]
     k_flat: Pool,
     v_flat: Pool,
-    block_tables: torch.Tensor,  # [NB, P] int32, each block's row's table
-    block_ctx: torch.Tensor,  # [NB] int32, each block's row's ctx_len
-    q_positions: torch.Tensor,  # [NB, ragged_block] int32
+    page_tables: torch.Tensor,  # [R, P] int32 per-row tables
+    ctx_lens: torch.Tensor,  # [R] int32
+    q_positions: torch.Tensor,  # [N] int32
+    row_ids: torch.Tensor,  # [N] int32
+    plan: Optional[RaggedPlan],  # ragged_plan of these rows, positions and contexts
     page_size: int,
+    ragged_block: int = 8,
 ) -> torch.Tensor:
-    """W1's launch on tables already gathered per block (the ragged
-    forward gathers them once above its layer loop): one chunk-kernel
-    call at ``[NB, ragged_block]`` (the tensor-core kernel of
-    ``chunk_attention.cu`` for bf16 queries, as :func:`chunk_route`
-    says), counted under ``paged_ragged_attention``. At the serving
-    geometry (72 blocks of 8 tokens, 32 query heads over 8 kv heads)
-    ``chunk_plan`` makes 576 blocks and no split: one launch a call."""
-    return _chunk_call(q, k_flat, v_flat, block_tables, block_ctx, q_positions,
-                       page_size, "paged_ragged_attention")
+    """W1's launch on a tile list built beforehand (the ragged forward builds
+    it once above its layer loop), counted under ``paged_ragged_attention``
+    (``_int8`` over an int8 pool). On CPU tensors: the plain version. On CUDA
+    tensors, by :func:`ragged_route`: bf16 queries take the ragged kernel on
+    ``plan`` (required there), one launch a call with no allocation but the
+    output (split partials and counters in the stream's
+    :func:`split_workspace`); f32 queries take the CUDA-core chunk kernel at
+    ``[N / rq, rq]`` on the blocks' gathered tables. Only the ragged kernel
+    reads ``plan``: the other routes take None."""
+    rq = ragged_block
+    if q.device.type == "cpu":
+        return plain_ragged_attention(q, k_flat, v_flat, page_tables, ctx_lens, q_positions,
+                                      row_ids, page_size, rq)
+    k, v, ks, vs = _split(k_flat, v_flat)
+    _check(q, k, v, ks, vs, page_tables, ctx_lens, page_size, (q_positions, row_ids),
+           rows=page_tables.shape[0])
+    n, n_q, hd = q.shape
+    n_kv = k.shape[1]
+    name = "paged_ragged_attention" + ("_int8" if ks is not None else "")
+    if q_positions.shape != (n,) or row_ids.shape != (n,) or n % rq:
+        raise ValueError(f"q_positions and row_ids must be [{n}] and {n} tokens whole "
+                         f"blocks of {rq}")
+    if ragged_route(q.dtype, hd, n_q // n_kv, rq) == "cuda_core":
+        nb = n // rq
+        rows = row_ids.reshape(nb, rq)[:, 0]
+        out = _chunk_call(q.reshape(nb, rq, n_q, hd), k_flat, v_flat,
+                          page_tables.index_select(0, rows), ctx_lens.index_select(0, rows),
+                          q_positions.reshape(nb, rq), page_size, "paged_ragged_attention")
+        return out.reshape(n, n_q, hd)
+    shape = ragged_shape(n, n_q, n_kv, hd, page_tables.shape[1], page_size, rq)
+    if plan is None or shape != plan.shape:
+        raise ValueError(f"the ragged kernel needs a tile list planned for {shape}, not "
+                         f"{None if plan is None else plan.shape}")
+    if plan.tiles.device != q.device or plan.live.device != q.device:
+        raise ValueError("the tile list must lie on the queries' device")
+    if any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("the ragged kernel needs q and the pools 16-byte aligned")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    counters, ws = split_workspace(q.device, stream, shape.counters, shape.workspace_floats)
+    out = torch.empty_like(q)
+    rc = library().rb_paged_ragged_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(ks), _ptr(vs), page_tables.data_ptr(),
+        ctx_lens.data_ptr(), q_positions.data_ptr(), plan.tiles.data_ptr(),
+        plan.live.data_ptr(), out.data_ptr(), ws.data_ptr(), counters.data_ptr(), shape.ctas,
+        n_q, n_kv, hd, page_size, page_tables.shape[1], rq, shape.keys_per_split,
+        shape.max_splits, 1.0 / math.sqrt(hd), _DTYPE_CODES[k.dtype], stream)
+    raise_on(rc, name)
+    launches[name] += 1
+    return out
 
 
 # ------------------------------------------------------- page-split partials

@@ -6,10 +6,13 @@ owned by one row. Here: the port's plain ``ragged_paged_attention`` against
 JAX's XLA op, W1's plain route (``paged_ragged_attention`` on CPU tensors)
 against the Pallas ``paged_ragged_attention`` in interpret mode, pad blocks
 (a null row with ``ctx_len = 0``) giving zeros, GQA groups 1, 4 and 7, an
-int8 pool, and an f32 emulation of the CUDA route: the block rows gathered
-as the wrapper gathers them, then the chunk kernel's split over page
-columns and its merge, at a geometry where ``chunk_plan`` splits. Inputs
-are made with numpy from a seed.
+int8 pool, and an f32 emulation of the chunk kernel at ``[N / 8, 8]`` as
+the tensor-parallel mixed forward runs it per head shard: the block rows
+gathered, then the chunk kernel's split over page columns and its merge,
+at a geometry where ``chunk_plan`` splits. W1's own kernel on CUDA
+tensors (``csrc/ragged_attention.cu``) is emulated in
+``tests/test_torch_ragged_plan.py``. Inputs are made with numpy from a
+seed.
 """
 
 import jax.numpy as jnp
@@ -140,9 +143,10 @@ def test_w1_counts_no_launch_on_the_cpu():
 
 
 def test_chunk_plan_at_the_mixed_shapes():
-    """The serving config's mixed batch (8 decode blocks + 512 prefill
-    tokens = 72 blocks) makes 576 blocks: no split, one launch. A budget of
-    16 tokens (9 blocks) splits."""
+    """K2 at the mixed batch's block shape, as the tensor-parallel mixed
+    forward calls it: the serving config's mixed batch (8 decode blocks +
+    512 prefill tokens = 72 blocks) makes 576 blocks: no split, one launch.
+    A budget of 16 tokens (9 blocks) splits."""
     serving = tpa.chunk_plan(72, RQ, 32, 8, 128, 513)
     assert (serving.rows, serving.q_tiles, serving.splits, serving.workspace_bytes) == \
         (32, 1, 1, 0)
@@ -154,12 +158,13 @@ def test_chunk_plan_at_the_mixed_shapes():
 
 @pytest.mark.parametrize("group", [1, 4, 7])
 def test_cuda_route_emulated_split_and_merge(group):
-    """W1 on CUDA tensors gathers each block's table row and context, then
-    makes one chunk call at [N / 8, 8]; here that call's split over page
-    columns (``chunk_plan`` splits this small batch) is emulated as the
-    splits' partials and their merge, in f32, against the plain version.
-    Every split of a pad block sees no key, and the merge still gives
-    zeros."""
+    """The mixed batch as one chunk call at [N / 8, 8] on each block's
+    gathered table row and context (the tensor-parallel mixed forward's
+    attention per head shard, and W1's f32 route); that call's split over
+    page columns (``chunk_plan`` splits this small batch) is emulated as
+    the splits' partials and their merge, in f32, against the plain
+    version. Every split of a pad block sees no key, and the merge still
+    gives zeros."""
     (q, k, v, tables, ctx, pos, rows), _ = ragged_case(20 + group, n_kv=2, group=group)
     n, n_q, hd = q.shape
     nb = n // RQ
