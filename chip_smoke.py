@@ -205,6 +205,35 @@ Phases (any failure exits non-zero; one JSON object per phase on stdout):
    and completion tokens, TTFT and wall, the forced tokens, each FSM
    phase's wall and the guided tokens a second. ``--agent`` runs the
    build and this phase alone.
+19. (after phase 18) the knowledge path. ``knowledge_encode``: the
+   bge-base-en-v1.5 encoder at full width (dim 768, 12 layers, 12 heads,
+   ffn 3072, 512 positions), f32 with TF32 off, random weights from seed 0
+   (drawn on the CPU, so the CPU copy is the same), at B = 64 and each
+   length bucket (T = 16, 64, 256, 512, ragged masks): events, device and
+   cold ms beside the bound (real tokens only, at the f32 peak); the first 4
+   rows of each bucket against the same encoder on the CPU (max |err| <=
+   1e-4); the hf-tiny-bert golden on the card (atol 2e-4, rtol 2e-3).
+   ``knowledge_sync``: ``knowledge sync`` through the port's CLI over a
+   markdown tree drawn from seed 0 (512 documents shaped like
+   ``examples/runbooks/*.md``, 2-8 KB each, and the three example
+   runbooks): documents, chunks, embedded tokens, the sync wall, encoder
+   seconds, chunks and tokens a second; then 32 hybrid searches
+   (``knowledge search``'s call) with p50/p99 latency, split into query
+   encode, vector top-k and FTS, held against the same searches on a
+   retriever on the CPU over the same db and weights (every cosine within
+   1e-5; hit ids equal, up to ranks that a tie within that error swaps);
+   ``knowledge search``, ``add``, ``stats`` and ``validate`` once each.
+   Then phase 18's runs over that knowledge base and a
+   ``service-graph.json`` (``agent_investigate_knowledge``,
+   ``agent_ask_knowledge``), graphs on and off, equal, K1 and K2
+   launched: ``investigate``'s triage prompt must carry the
+   ``search_knowledge`` step's hits and its remediation prompt the
+   runbooks a retriever on the CPU gives for its root cause; ``ask`` must
+   print ``knowledge_retrieved``. Each first prompt of ``ask`` is counted
+   before it is served: phase 18's question with aws's tools, then with
+   none, else a how-to question (answered from the knowledge alone, no
+   tool schemas), the first to leave its 256 tokens inside 8,192.
+   ``--knowledge`` runs the build and this phase alone.
 
 Then it prints the kernels' line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -3365,17 +3394,26 @@ AGENT_ARGV = {
 }
 
 
-def agent_config(tmp: Path, cmd: str) -> Path:
+def agent_config(tmp: Path, cmd: str, kb: Optional[dict] = None,
+                 providers: Optional[dict] = None, provider: str = "jax-tpu") -> Path:
     """The phase's ``config.yaml``: the 8B from seed 0 in bf16 on the
     serving engine (``llm.provider: jax-tpu``), byte tokenizer, simulated
-    providers, the e2e test's budgets, everything under ``tmp``."""
+    providers (``providers``, else ``AGENT_PROVIDERS[cmd]``), the e2e test's
+    budgets, everything under ``tmp``. With ``kb`` (phase 19), its
+    ``knowledge`` block and its service graph as
+    ``<runbook_dir>/service-graph.json``."""
     import yaml
 
     max_new = AGENT_ASK_MAX_NEW if cmd == "ask" else AGENT_MAX_NEW
+    doc = {**(AGENT_PROVIDERS[cmd] if providers is None else providers),
+           "runbook_dir": str(tmp / "rb"), "agent": AGENT_BUDGETS,
+           "llm": {"provider": provider, "model": ENGINE_MODEL, "max_new_tokens": max_new}}
+    if kb is not None:
+        doc["knowledge"] = kb["knowledge"]
+        (tmp / "rb").mkdir(parents=True, exist_ok=True)
+        (tmp / "rb" / "service-graph.json").write_text(kb["graph"])
     path = tmp / "config.yaml"
-    path.write_text(yaml.safe_dump({
-        **AGENT_PROVIDERS[cmd], "runbook_dir": str(tmp / "rb"), "agent": AGENT_BUDGETS,
-        "llm": {"provider": "jax-tpu", "model": ENGINE_MODEL, "max_new_tokens": max_new}}))
+    path.write_text(yaml.safe_dump(doc))
     return path
 
 
@@ -3395,7 +3433,7 @@ def agent_document(text: str, name: str, req) -> dict:
     return {"bytes": len(text.encode()), "trailing_whitespace": len(text.lstrip()) - end}
 
 
-def phase_agent(torch, cmd: str, graphs: bool = True) -> dict:
+def phase_agent(torch, cmd: str, graphs: bool = True, kb: Optional[dict] = None) -> dict:
     """``python -m runbookai_tpu_torch <cmd> ... --yes`` in this process
     (``__main__.main(argv)``) on the phase's config: the client is
     ``TorchCudaClient.from_config``'s at ``AGENT_LAYERS`` of the 8B's
@@ -3407,7 +3445,12 @@ def phase_agent(torch, cmd: str, graphs: bool = True) -> dict:
     command exits 0, K1 and K2 launched, the step graphs replayed (graphs
     on) or not (off), every guided call's document parses under its schema
     (:func:`agent_document`) and ``investigate`` reaches its root cause with
-    the machine complete in its checkpoint."""
+    the machine complete in its checkpoint. With ``kb`` (phase 19: the
+    knowledge block of a synced ``knowledge.db``, a service graph and the
+    providers), the command runs over that knowledge base, and it also
+    fails unless ``investigate``'s remediation prompt carries ids of
+    retrieved documents, or ``ask`` printed its ``knowledge_retrieved``
+    event."""
     import contextlib
     import dataclasses
     import io
@@ -3441,7 +3484,9 @@ def phase_agent(torch, cmd: str, graphs: bool = True) -> dict:
 
     out = io.StringIO()
     with tempfile.TemporaryDirectory() as tmp:
-        argv = [*AGENT_ARGV[cmd], "--yes", "--config", str(agent_config(Path(tmp), cmd))]
+        config = agent_config(Path(tmp), cmd, kb, kb and kb["providers"])
+        argv = [*(kb["argv"] if kb else AGENT_ARGV[cmd]), "--yes", "--device", DEVICE,
+                "--config", str(config)]
         with mock.patch.object(TorchCudaClient, "from_config",
                                classmethod(counted_from_config)), \
                 mock.patch.object(TorchCudaClient, "build", classmethod(build_graphs)), \
@@ -3493,11 +3538,16 @@ def phase_agent(torch, cmd: str, graphs: bool = True) -> dict:
         raise AssertionError(f"ask: its first call was not served: {calls[:1]}")
     guided_tokens = sum(c["completion_tokens"] for c in guided)
     guided_wall = sum(c["wall_s"] for c in guided)
-    (OUT_DIR / f"agent_{cmd}{'' if graphs else '_graphs_off'}.txt").write_text(printed)
-    return {"phase": f"agent_{cmd}" + ("" if graphs else "_graphs_off"),
+    name = f"agent_{cmd}" + ("_knowledge" if kb else "") + ("" if graphs else "_graphs_off")
+    extra = {}
+    if kb is not None:
+        extra = knowledge_in_run(cmd, client, printed, kb, snapshot)
+    (OUT_DIR / f"{name}.txt").write_text(printed)
+    return {"phase": name, **extra,
             "step_graphs": graphs, "model": ENGINE_MODEL, "layers": AGENT_LAYERS,
             "schema_limits": GUIDED_LIMITS, "argv": argv[:-1],
-            "providers": AGENT_PROVIDERS[cmd], "budgets": AGENT_BUDGETS,
+            "providers": AGENT_PROVIDERS[cmd] if kb is None else kb["providers"],
+            "budgets": AGENT_BUDGETS,
             "build_s": build_s, "graph_capture_s": metrics["graph_capture_s"],
             "wall_s": wall, "llm_calls": len(calls),
             "prompt_tokens": sum(c["prompt_tokens"] for c in calls),
@@ -3533,6 +3583,523 @@ def agent_line(res: dict) -> dict:
             "printed_bytes": len(res["printed"].encode()),
             "documents": len(res["documents"])}
 
+
+# Phase 19: the knowledge path. The bge-base encoder at full width beside the
+# 8B, `knowledge sync` and `knowledge search` over a generated tree, and
+# phase 18's commands over the synced knowledge base.
+KNOWLEDGE_MODEL = "bge-base-en-v1.5"  # dim 768, 12 layers, 12 heads, ffn 3072, f32
+KNOWLEDGE_SEED = 0
+KNOWLEDGE_DOCS = 512  # generated documents, beside the three example runbooks
+KNOWLEDGE_BATCH = 64  # the embedder's batch (EmbedderConfig.batch_size)
+KNOWLEDGE_BUCKETS = (16, 64, 256, 512)  # the embedder's length buckets timed
+KNOWLEDGE_CPU_ROWS = 4  # rows a bucket held against the CPU
+KNOWLEDGE_TOL = 1e-4  # max |err| of an f32 embedding, card vs CPU
+KNOWLEDGE_SCORE_TOL = 1e-5  # max |err| of a search cosine, card vs CPU
+KNOWLEDGE_GOLDEN_TOL = (2e-4, 2e-3)  # hf-tiny-bert (atol, rtol), the JAX test's
+KNOWLEDGE_QUERIES = 32
+KNOWLEDGE_CONTEXT = 8192  # the 8B's context: ask's first prompt + its budget must fit
+# A how-to question: the agent answers it from the retrieved knowledge alone
+# (agent.py's knowledge-only path), a prompt without the tools' schemas.
+KNOWLEDGE_HOWTO = "how to mitigate connection exhaustion on payment-api"
+KNOWLEDGE_SERVICES = ("payment-api", "payments-db", "checkout-web", "inventory-service",
+                      "auth-service", "order-service", "search-api", "notification-worker",
+                      "redis-cache", "kafka-broker", "cdn-edge", "user-profile")
+KNOWLEDGE_DEPENDS = (("checkout-web", "payment-api"), ("checkout-web", "inventory-service"),
+                     ("checkout-web", "cdn-edge"), ("payment-api", "payments-db"),
+                     ("payment-api", "redis-cache"), ("payment-api", "auth-service"),
+                     ("order-service", "payment-api"), ("order-service", "kafka-broker"),
+                     ("notification-worker", "kafka-broker"), ("search-api", "redis-cache"),
+                     ("user-profile", "auth-service"), ("inventory-service", "payments-db"))
+_KNOWLEDGE_TYPES = ("runbook", "postmortem", "known-issue", "troubleshooting", "procedure",
+                    "architecture")
+_SYMPTOMS = ("latency", "5xx errors", "timeouts", "OOMKilled restarts", "CrashLoopBackOff",
+             "connection exhaustion", "disk pressure", "certificate expiry", "consumer lag",
+             "cache misses", "throttling", "lock contention")
+_WORDS = ("the pool connection deploy rollback replica primary failover latency p99 error "
+          "rate queue consumer lag partition broker cache eviction memory heap limit request "
+          "timeout retry backoff circuit breaker upstream downstream dependency alarm "
+          "dashboard metric threshold saturation cpu node pod container restart probe "
+          "readiness liveness ingress balancer dns certificate ttl shard index query plan "
+          "lock contention transaction write read throughput capacity autoscaling on-call "
+          "page incident mitigation customer impact region zone config flag canary").split()
+_STEPS = ("Check the {m} dashboard for `{svc}` over the last hour.",
+          "Compare {m} before and after the most recent deploy of `{svc}`.",
+          "List the pods: `kubectl get pods -n prod -l app={svc}`.",
+          "Read the last 15 minutes of logs: `kubectl logs deploy/{svc} --since=15m`.",
+          "Confirm whether the {m} alarm fired for `{svc}` or a dependency.",
+          "Scale `{svc}` out by two replicas if saturation is above 80%.",
+          "Roll back `{svc}` to the previous image if the deploy is the trigger.",
+          "Page the owning team of `{svc}` if the {m} does not recover in 10 minutes.")
+_COMMANDS = ("kubectl get pods -n prod -l app={svc}", "kubectl describe deploy/{svc} -n prod",
+             "kubectl rollout undo deploy/{svc} -n prod", "redis-cli -h {svc} INFO clients",
+             "aws cloudwatch describe-alarms --alarm-name-prefix {svc}",
+             "psql -c 'select count(*) from pg_stat_activity'")
+
+
+def knowledge_tree(root: Path, n_docs: int = KNOWLEDGE_DOCS, seed: int = KNOWLEDGE_SEED) -> dict:
+    """A markdown tree shaped like ``examples/runbooks/*.md`` under ``root``:
+    ``n_docs`` documents drawn from ``seed`` (frontmatter with type,
+    services, symptoms and severity; a title, symptom bullets, numbered
+    triage and mitigation steps, commands and background prose, 2-8 KB each)
+    and the three example runbooks. Returns the counts."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    pick = lambda seq, n=None: (seq[int(rng.integers(len(seq)))] if n is None  # noqa: E731
+                                else [seq[i] for i in rng.choice(len(seq), n, replace=False)])
+
+    def sentence() -> str:
+        words = pick(_WORDS, int(rng.integers(8, 21)))
+        return " ".join(words).capitalize() + "."
+
+    def paragraph() -> str:
+        return " ".join(sentence() for _ in range(int(rng.integers(3, 7))))
+
+    (root / "generated").mkdir(parents=True, exist_ok=True)
+    total = 0
+    for i in range(n_docs):
+        kind, svcs = pick(_KNOWLEDGE_TYPES), pick(KNOWLEDGE_SERVICES, int(rng.integers(1, 4)))
+        symptoms = pick(_SYMPTOMS, int(rng.integers(1, 3)))
+        target = int(rng.integers(2048, 8193))
+        svc, m = svcs[0], symptoms[0]
+        steps = lambda n: "\n".join(f"{j + 1}. " + pick(_STEPS).format(svc=pick(svcs), m=m)  # noqa: E731
+                                    for j in range(n))
+        parts = [
+            "---", f"type: {kind}", f"services: [{', '.join(svcs)}]",
+            f"symptoms: [{', '.join(symptoms)}]",
+            f"severity: {pick(('critical', 'high', 'medium', 'low'))}", "---",
+            f"# {svc} {m} {kind} {i:03d}", "",
+            f"**Service:** {', '.join(svcs)}", f"**Severity when seen:** P{int(rng.integers(1, 4))}",
+            "", "## Symptoms", "",
+            *(f"- {s} on `{pick(svcs)}`: {sentence()}" for s in symptoms),
+            "", "## Triage", "", steps(int(rng.integers(3, 7))),
+            "", "## Common root causes", "", paragraph(),
+            "", "## Mitigation", "", steps(int(rng.integers(2, 6))),
+            "", "## Commands", "", "```",
+            *(pick(_COMMANDS).format(svc=pick(svcs)) for _ in range(int(rng.integers(1, 4)))),
+            "```", "", "## Background", ""]
+        text = "\n".join(parts)
+        while len(text) < target:
+            text += "\n" + paragraph() + "\n"
+        (root / "generated" / f"doc-{i:03d}.md").write_text(text)
+        total += len(text.encode())
+    examples = sorted((ROOT / "examples" / "runbooks").glob("*.md"))
+    (root / "examples").mkdir(exist_ok=True)
+    for path in examples:
+        (root / "examples" / path.name).write_text(path.read_text())
+        total += path.stat().st_size
+    return {"documents": n_docs + len(examples), "bytes": total}
+
+
+def knowledge_queries(n: int = KNOWLEDGE_QUERIES, seed: int = KNOWLEDGE_SEED) -> list[str]:
+    """``n`` search queries an on-call engineer would type, drawn from ``seed``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 1)
+    forms = ("why is {svc} showing {m}", "{m} on {svc} after deploy", "how to mitigate {m}",
+             "{svc} {m} runbook", "postmortem {svc} {m}", "what depends on {svc}")
+    queries: list[str] = []
+    while len(queries) < n:  # distinct: a repeated query would hit the embedder's cache
+        q = forms[len(queries) % len(forms)].format(
+            svc=KNOWLEDGE_SERVICES[int(rng.integers(len(KNOWLEDGE_SERVICES)))],
+            m=_SYMPTOMS[int(rng.integers(len(_SYMPTOMS)))])
+        if q not in queries:
+            queries.append(q)
+    return queries
+
+
+def knowledge_graph_json() -> str:
+    """The services of the tree and their dependencies, as the port's
+    ``ServiceGraph`` saves them (``<runbook_dir>/service-graph.json``)."""
+    from runbookai_tpu_torch.knowledge.store.graph import ServiceGraph
+
+    graph = ServiceGraph()
+    for i, svc in enumerate(KNOWLEDGE_SERVICES):
+        graph.add_service(svc, team=("payments", "storefront", "platform")[i % 3], tier=1 + i % 3)
+    for src, dst in KNOWLEDGE_DEPENDS:
+        graph.add_dependency(src, dst)
+    return json.dumps({"nodes": [vars(n) for n in graph.nodes.values()],
+                       "edges": [vars(e) for e in graph.edges]}, indent=2)
+
+
+def encoder_work(cfg, mask) -> tuple[float, float]:
+    """(bytes, operations) one encode must move and do for these inputs:
+    every layer weight read once, the gathered embedding rows, the token ids
+    and mask, the [B, dim] output; 2 flops a multiply-add of the
+    projections (2 * (4 * dim^2 + 2 * dim * ffn) a real token a layer) and of
+    attention over each row's real keys (4 * len^2 * dim a row a layer).
+    Padding is not counted."""
+    lens = mask.sum(1).double()
+    tokens = float(lens.sum())
+    d, f, L = cfg.dim, cfg.ffn_dim, cfg.n_layers
+    layer_params = L * (4 * d * d + 4 * d + 2 * d * f + f + d + 4 * d)
+    n_bytes = 4 * (layer_params + tokens * d + mask.shape[1] * d + 3 * d
+                   + mask.shape[0] * d) + 2 * mask.numel() * 8
+    flops = L * (2 * tokens * (4 * d * d + 2 * d * f) + float((4 * lens * lens * d).sum()))
+    return n_bytes, flops
+
+
+def phase_knowledge_encode(torch) -> dict:
+    """The bge-base encoder at full width in f32, random weights from
+    ``KNOWLEDGE_SEED`` (drawn on the CPU, so the CPU copy is the same), at
+    B = 64 and each length bucket with ragged masks: events, device and
+    cold ms beside the bound at the f32 peak; the first 4 rows against the
+    same encoder on the CPU (max |err| <= KNOWLEDGE_TOL); the hf-tiny-bert
+    golden on the card at the JAX test's tolerance."""
+    import numpy as np
+
+    from runbookai_tpu_torch.models import bge
+
+    free_device(torch)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: the encoder must run in full f32")
+    t0 = time.perf_counter()
+    cfg, params = bge.load_or_init(KNOWLEDGE_MODEL, None, seed=KNOWLEDGE_SEED, device=DEVICE)
+    enc = bge.BertEncoder(cfg, params)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    cpu = bge.BertEncoder(cfg, bge.load_or_init(KNOWLEDGE_MODEL, None, seed=KNOWLEDGE_SEED,
+                                                device="cpu")[1])
+    gen = torch.Generator().manual_seed(KNOWLEDGE_SEED + 1)
+    out: dict = {"phase": "knowledge_encode", "model": KNOWLEDGE_MODEL,
+                 "config": {k: getattr(cfg, k) for k in ("dim", "n_layers", "n_heads",
+                                                         "ffn_dim", "max_positions")},
+                 "dtype": "float32", "batch": KNOWLEDGE_BATCH, "load_s": load_s,
+                 "peak_flops_f32": PEAK_FLOPS["float32"], "buckets": {}}
+    worst = 0.0
+    for t in KNOWLEDGE_BUCKETS:
+        tokens = torch.randint(0, cfg.vocab_size, (KNOWLEDGE_BATCH, t), generator=gen)
+        lens = torch.randint(1, t + 1, (KNOWLEDGE_BATCH,), generator=gen)
+        lens[0] = t  # one full row a bucket
+        mask = (torch.arange(t)[None, :] < lens[:, None]).long()
+        tok_d, mask_d = tokens.to(DEVICE), mask.to(DEVICE)
+        got = enc.encode(tok_d, mask_d)
+        want = cpu.encode(tokens[:KNOWLEDGE_CPU_ROWS], mask[:KNOWLEDGE_CPU_ROWS])
+        if tuple(got.shape) != (KNOWLEDGE_BATCH, cfg.dim) or not bool(got.isfinite().all()):
+            raise AssertionError(f"encoder at T={t}: shape {tuple(got.shape)} or non-finite")
+        err = float((got[:KNOWLEDGE_CPU_ROWS].cpu() - want).abs().max())
+        norms = got.norm(dim=-1)
+        if err > KNOWLEDGE_TOL or float((norms - 1).abs().max()) > 1e-5:
+            raise AssertionError(f"encoder at T={t}: max |err| {err:.3e} vs the CPU "
+                                 f"(tol {KNOWLEDGE_TOL}), norms {norms.min():.6f}..")
+        worst = max(worst, err)
+        call = lambda: enc.encode(tok_d, mask_d)  # noqa: E731
+        n_bytes, flops = encoder_work(cfg, mask)
+        bound_ms, bound_by = bound(n_bytes, flops, "float32")
+        ms = time_ms(call, iters=10, warmup=2)
+        out["buckets"][str(t)] = {
+            "real_tokens": int(mask.sum()), "max_abs_err": err, "ms": ms,
+            "device_ms": device_ms(call, iters=5), "cold_ms": cold_ms(call, iters=5),
+            "bound_ms": bound_ms, "bound_by": bound_by, "gflop": flops / 1e9,
+            "bytes": n_bytes, "share_of_bound": bound_ms / ms}
+    out["max_abs_err"] = worst
+    # The checked-in HF golden (transformers' BertModel CLS, normalised).
+    fixture = ROOT / "tests" / "fixtures" / "hf-tiny-bert"
+    gcfg, gparams = bge.load_params(fixture, device=DEVICE)
+    blob = np.load(fixture / "expected_embeddings.npz")
+    golden = bge.BertEncoder(gcfg, gparams).encode(
+        torch.from_numpy(blob["input_ids"]).to(DEVICE),
+        torch.from_numpy(blob["attention_mask"]).to(DEVICE)).cpu().numpy()
+    atol, rtol = KNOWLEDGE_GOLDEN_TOL
+    np.testing.assert_allclose(golden, blob["cls_norm"], atol=atol, rtol=rtol)
+    out["hf_golden_max_abs_err"] = float(np.abs(golden - blob["cls_norm"]).max())
+    del enc, cpu, params
+    return out
+
+
+def knowledge_block(tree: Path, db: Path) -> dict:
+    """The ``knowledge`` block of the phase's configs: the tree as one
+    filesystem source, the db, bge-base at its defaults."""
+    return {"sources": [{"type": "filesystem", "name": "runbooks", "path": str(tree)}],
+            "db_path": str(db), "embedder": {"model": KNOWLEDGE_MODEL}}
+
+
+def run_cli(argv: list[str]) -> tuple[int, str, float]:
+    """``python -m runbookai_tpu_torch <argv> --device DEVICE`` in this
+    process: (exit code, what it printed, wall seconds)."""
+    import contextlib
+    import io
+
+    from runbookai_tpu_torch import __main__ as cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        t0 = time.perf_counter()
+        rc = cli.main([*argv, "--device", DEVICE])
+        wall = time.perf_counter() - t0
+    return rc, out.getvalue(), wall
+
+
+def percentiles(xs: list[float]) -> dict:
+    import numpy as np
+
+    return {"p50": float(np.percentile(xs, 50)), "p99": float(np.percentile(xs, 99)),
+            "mean": float(np.mean(xs))}
+
+
+def phase_knowledge_sync(torch, tmp: Path) -> tuple[dict, dict]:
+    """``knowledge sync`` through the port's CLI over :func:`knowledge_tree`
+    (encoder seconds and the length buckets read around each encode), then
+    ``KNOWLEDGE_QUERIES`` hybrid searches (``knowledge search``'s call) on a
+    retriever on the card, each split into query encode, vector top-k and
+    FTS, and the same searches on a retriever on the CPU over the same db and
+    weights: every cosine within ``KNOWLEDGE_SCORE_TOL`` of the CPU's, and the
+    hit ids equal, up to ranks that a tie within that error swaps
+    (:func:`compare_rankings`). Then ``knowledge search``,
+    ``add``, ``stats`` and ``validate`` once each through the CLI. Returns the
+    line and the knowledge base for the agent runs."""
+    import contextlib
+    import sqlite3
+    from unittest import mock
+
+    import yaml
+
+    from runbookai_tpu_torch.knowledge.retriever import create_retriever
+    from runbookai_tpu_torch.models import bge
+    from runbookai_tpu_torch.utils.config import load_config
+
+    free_device(torch)
+    tree, db = tmp / "kb", tmp / "knowledge.db"
+    t0 = time.perf_counter()
+    made = knowledge_tree(tree, KNOWLEDGE_DOCS)
+    tree_s = time.perf_counter() - t0
+    kblock = knowledge_block(tree, db)
+    cfg_path = tmp / "knowledge.yaml"
+    cfg_path.write_text(yaml.safe_dump({"knowledge": kblock, "runbook_dir": str(tmp / "rb")}))
+    encode = bge.BertEncoder.encode
+    enc_s, enc_buckets = [0.0], {}
+
+    def timed_encode(self, tokens, mask):
+        t1 = time.perf_counter()
+        emb = encode(self, tokens, mask)
+        torch.cuda.synchronize()
+        enc_s[0] += time.perf_counter() - t1
+        key = str(tokens.shape[1])
+        enc_buckets[key] = enc_buckets.get(key, 0) + 1
+        return emb
+
+    with mock.patch.object(bge.BertEncoder, "encode", timed_encode):
+        rc, printed, sync_s = run_cli(["knowledge", "sync", "--config", str(cfg_path)])
+    if rc != 0:
+        raise AssertionError(f"knowledge sync: exit {rc}")
+    stats = json.loads(printed[printed.index("{"):])
+    if stats["documents"] != made["documents"] or stats["embeddings"] != stats["chunks"]:
+        raise AssertionError(f"knowledge sync: {stats} for {made['documents']} documents")
+    emb_tokens = stats["embedder"]["tokens"]
+    config = load_config(path=str(cfg_path))
+    queries = knowledge_queries(KNOWLEDGE_QUERIES)
+    card = create_retriever(config, device=DEVICE)
+    split: dict = {"encode": [], "vector": [], "fts": []}
+
+    def timed(fn, key):
+        def call(*args, **kw):
+            t1 = time.perf_counter()
+            res = fn(*args, **kw)
+            split[key].append((time.perf_counter() - t1) * 1e3)
+            return res
+        return call
+
+    h = card.hybrid
+    t0 = time.perf_counter()
+    h.search("warm-up", limit=8)  # loads the matrix onto the card
+    first_ms = (time.perf_counter() - t0) * 1e3
+    h.embedder.embed_text = timed(h.embedder.embed_text, "encode")
+    h.vectors.search = timed(h.vectors.search, "vector")
+    card.store.search = timed(card.store.search, "fts")
+    total, ids_card = [], []
+    for q in queries:
+        t0 = time.perf_counter()
+        hits = h.search(q, limit=8)
+        total.append((time.perf_counter() - t0) * 1e3)
+        ids_card.append([hit.chunk.chunk_id for hit in hits])
+    latency = {"search_ms": percentiles(total),
+               **{f"{k}_ms": percentiles(v) for k, v in split.items()}}
+    cpu = create_retriever(config, device="cpu")
+    ids_cpu = [[hit.chunk.chunk_id for hit in cpu.hybrid.search(q, limit=8)] for q in queries]
+    n = h.vectors.count()
+    rankings = [compare_rankings(
+        h.vectors.search(h.embedder.embed_text(q, is_query=True), n),
+        cpu.hybrid.vectors.search(cpu.hybrid.embedder.embed_text(q, is_query=True), n), 24)
+        for q in queries]
+    for q, a, b, rank in zip(queries, ids_card, ids_cpu, rankings):
+        if a != b and not rank["swaps"]:
+            raise AssertionError(f"knowledge search {q!r}: the card's hits {a} differ from "
+                                 f"the CPU's {b} with the same vector ranking")
+    if not all(ids_card):
+        raise AssertionError("knowledge search: a query found nothing")
+    del card, cpu
+    # The other sub-commands once each, through the CLI.
+    rc_s, searched, search_s = run_cli(["knowledge", "search", queries[0], "--config",
+                                        str(cfg_path)])
+    extra = tree / "added.md"
+    knowledge_tree(tmp / "extra", n_docs=1, seed=KNOWLEDGE_SEED + 7)
+    extra.write_text((tmp / "extra" / "generated" / "doc-000.md").read_text())
+    rc_a, added, add_s = run_cli(["knowledge", "add", str(extra), "--config", str(cfg_path)])
+    rc_t, stats_out, _ = run_cli(["knowledge", "stats", "--config", str(cfg_path)])
+    rc_v, valid, _ = run_cli(["knowledge", "validate", "--config", str(cfg_path)])
+    after = json.loads(stats_out)
+    if (rc_s, rc_a, rc_t, rc_v) != (0, 0, 0, 0) or not searched.startswith("[") \
+            or not added.startswith("added ") or valid.strip() != "ok" \
+            or after["documents"] != stats["documents"] + 1:
+        raise AssertionError(f"knowledge search/add/stats/validate: exits "
+                             f"{(rc_s, rc_a, rc_t, rc_v)}, {added!r}, {valid!r}, {after}")
+    line = {"phase": "knowledge_sync", "model": KNOWLEDGE_MODEL, "documents": stats["documents"],
+            "tree_bytes": made["bytes"], "tree_s": tree_s, "chunks": stats["chunks"],
+            "embedded_tokens": emb_tokens, "batches": stats["embedder"]["batches"],
+            "batches_by_length": enc_buckets, "sync_wall_s": sync_s, "encoder_s": enc_s[0],
+            "chunks_per_s": stats["chunks"] / sync_s, "tokens_per_s": emb_tokens / enc_s[0],
+            "encoder_share_of_sync": enc_s[0] / sync_s,
+            "queries": len(queries), "first_search_ms": first_ms, **latency,
+            "same_ids_as_cpu": sum(a == b for a, b in zip(ids_card, ids_cpu)),
+            "max_score_err_vs_cpu": max(r["max_score_err"] for r in rankings),
+            "tie_swaps_vs_cpu": {q: r["swaps"] for q, r in zip(queries, rankings) if r["swaps"]},
+            "hits_per_query": sum(map(len, ids_card)) / len(queries),
+            "cli_search_s": search_s, "cli_add_s": add_s, "db_bytes": db.stat().st_size}
+    with contextlib.closing(sqlite3.connect(str(db))) as con:
+        doc_ids = {r[0] for r in con.execute("SELECT doc_id FROM documents")}
+    kb = {"knowledge": kblock, "graph": knowledge_graph_json(), "doc_ids": doc_ids}
+    return line, kb
+
+
+def compare_rankings(card: list, cpu: list, k: int) -> dict:
+    """One query's cosine over every chunk, (id, score) best first, on the
+    card and on the CPU: each score within ``KNOWLEDGE_SCORE_TOL``, and at
+    each of the top ``k`` ranks the same chunk, or two whose card scores
+    differ by at most twice the largest score error (a tie that error can
+    reorder: the one way the rankings may part). Returns the error and the
+    swapped ranks with their gaps."""
+    card_s, cpu_s = dict(card), dict(cpu)
+    err = max(abs(card_s[i] - cpu_s[i]) for i in card_s)
+    if err > KNOWLEDGE_SCORE_TOL:
+        raise AssertionError(f"knowledge search: a cosine {err:.3e} off the CPU's")
+    swaps = []
+    for rank, ((a, _), (b, _)) in enumerate(zip(card[:k], cpu[:k])):
+        if a != b:
+            gap = abs(card_s[a] - card_s[b])
+            if gap > 2 * err:
+                raise AssertionError(f"knowledge search: rank {rank} holds {a} on the card, "
+                                     f"{b} on the CPU, {gap:.3e} apart (error {err:.3e})")
+            swaps.append({"rank": rank, "gap": gap})
+    return {"max_score_err": err, "swaps": swaps}
+
+
+def first_prompt_tokens(query: str, kb: dict, providers: dict) -> int:
+    """The byte tokens of ``ask <query>``'s first chat prompt over the
+    knowledge base with ``providers``, counted before it is served: the
+    runtime built with the mock provider records the prompt (its retrieval
+    runs on the card), rendered by the chat template the client serves it
+    with."""
+    import tempfile
+    from unittest import mock
+
+    from runbookai_tpu_torch.cli.runtime import build_agent, build_runtime
+    from runbookai_tpu_torch.model.chat_template import build_chat_prompt
+    from runbookai_tpu_torch.utils.config import load_config
+    from runbookai_tpu_torch.utils.tokens import ByteTokenizer
+
+    with tempfile.TemporaryDirectory() as tmp, \
+            mock.patch("time.time", return_value=AGENT_NOW):
+        path = agent_config(Path(tmp), "ask", kb, providers, provider="mock")
+        runtime = build_runtime(load_config(path=str(path)), interactive=False, device=DEVICE)
+
+        async def run():
+            async for _ in build_agent(runtime).run(query):
+                pass
+        asyncio.run(run())
+    call = runtime.llm.calls[0]
+    return len(ByteTokenizer().encode(build_chat_prompt(call["system"], call["user"],
+                                                        call["tools"])))
+
+
+def knowledge_in_run(cmd: str, client, printed: str, kb: dict, snapshot) -> dict:
+    """What a run over the knowledge base must show. ``ask``: it printed
+    ``knowledge_retrieved``. ``investigate``: its triage prompt carries the
+    ``search_knowledge`` step's hits (ids of documents in the db), and its
+    remediation prompt the runbooks block that the orchestrator's
+    ``fetch_relevant_runbooks`` makes from a retriever on the CPU over the
+    same db and weights, for the machine's root cause and first service:
+    its retrieved runbook ids, or "(none found)" where the search under the
+    model's first service finds no runbook."""
+    import re
+
+    from runbookai_tpu_torch.agent.orchestrator import InvestigationOrchestrator, ToolExecutor
+    from runbookai_tpu_torch.agent.state_machine import InvestigationStateMachine
+    from runbookai_tpu_torch.knowledge.retriever import create_retriever
+    from runbookai_tpu_torch.utils.config import Config
+
+    if cmd == "ask":
+        if "⚲ knowledge retrieved" not in printed:
+            raise AssertionError("ask over the knowledge base: no knowledge_retrieved event")
+        return {"knowledge_retrieved": True}
+
+    def prompt_of(schema: str) -> str:
+        (req,) = [r for r in client.core.finished if r.sampling.guided == schema]
+        return client.tokenizer.decode(req.prompt_ids[:len(req.prompt_ids)
+                                                       - len(req.folded_out_ids)])
+
+    def doc_ids(text: str) -> list[str]:
+        return [i for i in re.findall(r"[0-9a-f]{16}", text) if i in kb["doc_ids"]]
+
+    triage = prompt_of("triage")
+    step = triage[triage.find("search_knowledge:"):][:1600]
+    triage_ids = doc_ids(step)
+    if not triage_ids:
+        raise AssertionError(f"investigate: no search_knowledge hit in the triage prompt: "
+                             f"{step[:300]!r}")
+    machine = InvestigationStateMachine(incident_id="PD-424242")
+    machine.root_cause = snapshot["root_cause"]
+    machine.affected_services = list(snapshot["affected_services"])
+    cpu = create_retriever(Config.model_validate({"knowledge": kb["knowledge"]}), device="cpu")
+    orch = InvestigationOrchestrator(None, ToolExecutor({}), machine=machine, knowledge=cpu)
+    want = asyncio.run(orch.fetch_relevant_runbooks())
+    remediation = prompt_of("remediation")
+    if want not in remediation or want == "(runbook fetch failed)":
+        raise AssertionError(f"investigate: the remediation prompt lacks the CPU "
+                             f"retriever's runbooks {want[:200]!r}")
+    return {"triage_knowledge_ids": triage_ids,
+            "remediation_runbook_ids": re.findall(r"^\[([0-9a-f]{16})\]", want, re.M),
+            "remediation_runbooks": want if want == "(none found)" else "ids",
+            "remediation_query": {"root_cause": machine.root_cause,
+                                  "service": (machine.affected_services or [None])[0]}}
+
+
+def knowledge_phases(torch) -> None:
+    """Phase 19: the encoder, then sync and search, then ``investigate``
+    and ``ask`` over the synced base with a service graph (phase 18's runs,
+    graphs on and off, equal). ``ask`` asks phase 18's question with aws's
+    tools, then with none; where neither first prompt leaves its budget
+    inside the 8B's context (the retrieved knowledge block alone is up to
+    6,000 byte tokens), it asks ``KNOWLEDGE_HOWTO``, which the agent answers
+    on its knowledge-only path (no tool schemas). Every count is kept."""
+    import tempfile
+
+    emit(phase_knowledge_encode(torch))
+    with tempfile.TemporaryDirectory() as tmp:
+        line, kb = phase_knowledge_sync(torch, Path(tmp))
+        emit(line)
+        for cmd in ("investigate", "ask"):
+            tried = {}
+            kb.update(argv=AGENT_ARGV[cmd], providers=AGENT_PROVIDERS[cmd])
+            if cmd == "ask":
+                for argv, providers in ((AGENT_ARGV["ask"], AGENT_PROVIDERS["ask"]),
+                                        (AGENT_ARGV["ask"], {}),
+                                        (["ask", KNOWLEDGE_HOWTO], AGENT_PROVIDERS["ask"])):
+                    n = first_prompt_tokens(argv[1], kb, providers)
+                    tried[f"{argv[1]} | {json.dumps(providers)}"] = n
+                    kb.update(argv=argv, providers=providers)
+                    if n + AGENT_ASK_MAX_NEW <= KNOWLEDGE_CONTEXT:
+                        break
+                else:
+                    raise AssertionError(f"ask: no first prompt fits the context: {tried}")
+            on = phase_agent(torch, cmd, kb=kb)
+            on["first_prompt_tokens_tried"] = tried
+            emit(agent_line(on))
+            off = phase_agent(torch, cmd, graphs=False, kb=kb)
+            for key in ("printed", "documents", "checkpoint"):
+                if on[key] != off[key]:
+                    raise AssertionError(f"agent {cmd} over knowledge: graphs off gave "
+                                         f"another {key}")
+            emit(agent_line({**off, "same_as_graphs": True}))
 
 def main() -> int:
     try:
@@ -3571,6 +4138,9 @@ def main() -> int:
     emit(phase_build())
     if sys.argv[1:2] == ["--agent"]:
         agent_phases(torch)
+        return 0
+    if sys.argv[1:2] == ["--knowledge"]:
+        knowledge_phases(torch)
         return 0
     dec = phase_decode(pa, torch)
     emit(dec)
@@ -3677,6 +4247,9 @@ def main() -> int:
     # `investigate` and `ask` through the port's CLI (phase 18), graphs on
     # and off: the same output byte for byte.
     agent_phases(torch)
+    # The knowledge path (phase 19): the bge encoder beside the 8B, sync and
+    # search, and the agent over the knowledge base, graphs on and off.
+    knowledge_phases(torch)
     decp = phase_decode_partial(pa, torch)
     emit(decp)
     chkp = phase_chunk_partial(pa, torch)

@@ -1,4 +1,4 @@
-"""``python -m runbookai_tpu_torch chat|complete|ask|investigate``.
+"""``python -m runbookai_tpu_torch chat|complete|ask|investigate|knowledge``.
 
 ``chat``/``complete "<prompt>"`` serve one turn.
 
@@ -23,7 +23,14 @@ provider), ``llm.provider: jax-tpu`` serving through
 ``TorchCudaClient.from_config`` on ``--device`` (default: the card). They
 print the agent's events; ``investigate`` then the hypothesis tree, its
 summary and the root cause, and saves the final checkpoint under
-``<runbook_dir>/checkpoints``.
+``<runbook_dir>/checkpoints``. Where ``knowledge.sources`` are configured or
+``knowledge.db`` exists, both run over the knowledge base: the hybrid
+retriever, the ``search_knowledge`` tool and, with
+``<runbook_dir>/service-graph.json``, the service topology.
+
+``knowledge sync|search <query>|stats|add <file>|validate`` run the JAX
+package's ``runbook knowledge`` on the same config and ``knowledge.db``: the
+bge encoder and the vector matrix on ``--device`` (default: the card).
 """
 
 from __future__ import annotations
@@ -39,7 +46,8 @@ import torch
 from runbookai_tpu_torch.agent.llm_parser import SCHEMA_MODELS
 from runbookai_tpu_torch.model.torch_cuda import TorchCudaClient
 from runbookai_tpu_torch.ops import paged_attention, qmm
-from runbookai_tpu_torch.utils.config import load_config
+from runbookai_tpu_torch.unported import unported
+from runbookai_tpu_torch.utils.config import load_config, validate_config
 
 
 _token_line_open = False
@@ -115,6 +123,90 @@ def cmd_investigate(args) -> int:
     return 0
 
 
+def cmd_knowledge(args) -> int:
+    """The JAX CLI's ``cmd_knowledge`` with the retriever on ``--device``."""
+    from pathlib import Path
+
+    config = load_config(path=args.config)
+    if args.knowledge_cmd == "auth":
+        raise unported("`knowledge auth` (the Google OAuth flow, "
+                       "knowledge/sources/google_auth.py)", "queue 1 item 10")
+
+    from runbookai_tpu_torch.knowledge.retriever import create_retriever
+
+    retriever = create_retriever(config, device=args.device)
+    if args.knowledge_cmd == "sync":
+        if not config.knowledge.sources:
+            # Silent zero-document syncs are a config-location trap
+            # (config lives at .runbook/config.yaml, not ./runbook.yaml).
+            print("warning: no knowledge sources configured — add "
+                  "knowledge.sources entries to .runbook/config.yaml "
+                  "(see docs/CONFIG.md)", file=sys.stderr)
+        counts = retriever.sync(force=args.force)
+        for name, n in counts.items():
+            print(f"{name}: {n} documents synced")
+        print(json.dumps(retriever.stats(), indent=2, default=str))
+        return 0
+    if args.knowledge_cmd == "search":
+        hits = retriever.hybrid.search(args.query, limit=args.limit,
+                                       knowledge_type=args.type,
+                                       service=args.service)
+        for h in hits:
+            print(f"[{h.score:.4f}] ({h.doc.knowledge_type}) {h.doc.title} "
+                  f"§{h.chunk.section or '-'}")
+            print(f"    {h.chunk.content[:180]}")
+        if not hits:
+            print("(no results)")
+        return 0
+    if args.knowledge_cmd == "stats":
+        print(json.dumps(retriever.stats(), indent=2, default=str))
+        return 0
+    if args.knowledge_cmd == "add":
+        from runbookai_tpu_torch.knowledge.chunker import document_from_markdown
+
+        path = Path(args.file)
+        doc = document_from_markdown(str(path), path.read_text(),
+                                     default_title=path.stem)
+        retriever.store.upsert_document(doc)
+        if retriever.hybrid.embedder and retriever.hybrid.vectors is not None:
+            embs = retriever.hybrid.embedder.embed_texts(
+                [c.content for c in doc.chunks])
+            retriever.hybrid.vectors.store_many([
+                (c.chunk_id, doc.doc_id, embs[i]) for i, c in enumerate(doc.chunks)])
+        print(f"added {doc.doc_id}: {doc.title} ({len(doc.chunks)} chunks)")
+        return 0
+    problems = validate_config(config)  # validate
+    for p in problems:
+        print(f"- {p}")
+    print("ok" if not problems else f"{len(problems)} problem(s)")
+    return 0 if not problems else 1
+
+
+def _knowledge_parser(sub) -> None:
+    """``knowledge`` and its sub-commands, as the JAX CLI parses them, each
+    with ``--config`` and ``--device``."""
+    common = argparse.ArgumentParser(add_help=False)
+    common.add_argument("--config", help="explicit config.yaml path")
+    common.add_argument("--device", default="cuda",
+                        help="where the encoder and the vectors run (default: the card)")
+    kn = sub.add_parser("knowledge", help="knowledge base management")
+    kn_sub = kn.add_subparsers(dest="knowledge_cmd", required=True)
+    kn_sync = kn_sub.add_parser("sync", parents=[common])
+    kn_sync.add_argument("--force", action="store_true")
+    kn_search = kn_sub.add_parser("search", parents=[common])
+    kn_search.add_argument("query")
+    kn_search.add_argument("--type", default=None)
+    kn_search.add_argument("--service", default=None)
+    kn_search.add_argument("--limit", type=int, default=8)
+    kn_sub.add_parser("stats", parents=[common])
+    kn_add = kn_sub.add_parser("add", parents=[common])
+    kn_add.add_argument("file")
+    kn_sub.add_parser("validate", parents=[common])
+    kn_auth = kn_sub.add_parser("auth", parents=[common])
+    kn_auth.add_argument("provider", choices=["google"])
+    kn.set_defaults(fn=cmd_knowledge)
+
+
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m runbookai_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -133,6 +225,7 @@ def _parser() -> argparse.ArgumentParser:
                          help="where llm.provider jax-tpu serves (default: the card)")
     ask.set_defaults(fn=cmd_ask)
     inv.set_defaults(fn=cmd_investigate)
+    _knowledge_parser(sub)
     chat = sub.add_parser("chat", help="serve one chat turn")
     complete = sub.add_parser("complete", help="serve one guided-JSON completion")
     complete.add_argument("--schema", choices=sorted(SCHEMA_MODELS),

@@ -36,12 +36,15 @@ class Runtime:
 def build_runtime(config: Config, interactive: bool = True,
                   with_knowledge: bool = True, device="cuda") -> Runtime:
     """The runtime of ``config``; its engine-backed client (``llm.provider:
-    jax-tpu``) serves on ``device``."""
+    jax-tpu``) serves on ``device``, and its knowledge retriever (where
+    ``knowledge.sources`` or ``knowledge.db`` exist) holds its vectors and
+    encoder there."""
     llm = create_llm_client(config, device=device)
     knowledge = None
     if with_knowledge and (config.knowledge.sources or _db_exists(config)):
-        raise unported("The knowledge retriever (knowledge/retriever.py, the bge "
-                       "embedder)", "queue 1 item 7")
+        from runbookai_tpu_torch.knowledge.retriever import create_retriever
+
+        knowledge = create_retriever(config, device=device)
     # Approvals RACE the CLI prompt against Slack buttons: the webhook
     # server (runbook webhook) writes response files into the shared
     # approvals store, so an operator can answer from either surface
@@ -97,12 +100,15 @@ def _context_managers(runtime: Runtime) -> list:
     (reference agent.ts:293-340 wires all three into the system prompt)."""
     managers: list = []
     if runtime.knowledge is not None:
-        raise unported("The knowledge context (agent/knowledge_context.py)",
-                       "queue 1 item 7")
+        from runbookai_tpu_torch.agent.knowledge_context import KnowledgeContextManager
+
+        managers.append(KnowledgeContextManager(runtime.knowledge))
     graph_path = f"{runtime.config.runbook_dir}/service-graph.json"
     if _file_exists(graph_path):
-        raise unported("The service-graph context (agent/service_context.py, "
-                       "knowledge/store/graph.py)", "queue 1 item 7")
+        from runbookai_tpu_torch.agent.service_context import ServiceContextManager
+        from runbookai_tpu_torch.knowledge.store.graph import ServiceGraph
+
+        managers.append(ServiceContextManager(ServiceGraph.load(graph_path)))
     if runtime.config.agent.infra_context:
         from runbookai_tpu_torch.agent.infra_context import InfraContextManager
         from runbookai_tpu_torch.agent.orchestrator import ToolExecutor

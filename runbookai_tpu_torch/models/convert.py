@@ -3,7 +3,8 @@
 Both packages keep the same stacked pytree (``embed``, ``layers`` with
 ``[L, in, out]`` matrices, ``final_norm``, optional ``lm_head``), so
 conversion is one tensor per leaf; it lets the tests feed both packages the
-same weights. An int8 ``{"q": int8, "s": float32}`` layer leaf converts to a
+same weights. The bge encoder's params (``models/bge.py``) share their layout
+with the JAX package's too. An int8 ``{"q": int8, "s": float32}`` layer leaf converts to a
 dict of the same two tensors, in their own types.
 """
 
@@ -53,3 +54,12 @@ def params_from_jax(np_params: dict, device="cuda",
         else:
             out[name] = leaf(name, value)
     return out
+
+
+def bge_params_from_jax(np_params: dict, device="cuda") -> dict:
+    """The JAX package's bge params (``models/bge.py``: top-level embedding
+    and norm leaves, ``layers`` stacked ``[L, ...]``), as nested dicts of
+    numpy arrays, as the port's tensors on ``device``, each leaf in its own
+    dtype: the state :class:`~runbookai_tpu_torch.models.bge.BertEncoder`
+    takes."""
+    return params_from_jax(np_params, device=device)

@@ -125,8 +125,9 @@ def get_runtime_tools(config, registry: Optional[ToolRegistry] = None,
         else:
             raise unported("The real code tools (tools/code.py)", "queue 1 item 10")
     if knowledge is not None:
-        raise unported("The knowledge tool (tools/knowledge_tool.py, the bge "
-                       "embedder and retriever)", "queue 1 item 7")
+        from runbookai_tpu_torch.tools import knowledge_tool
+
+        knowledge_tool.register(reg, knowledge)
 
     # Skills last: the executor closes over the fully-populated tool set.
     from runbookai_tpu_torch.skills.executor import SkillExecutor
