@@ -3,7 +3,12 @@
 
     python3 chip_smoke.py        # from the repository root, one GPU
 
-Phases (any failure exits non-zero; one JSON object per phase on stdout):
+Phases (any failure exits non-zero; one JSON object per phase on stdout,
+its name and seconds on stderr; past ``WATCHDOG_S`` seconds the run dumps
+every thread's stack to stderr and exits 1). The profiled reruns of the
+serving configurations but int8's, the witnesses and the mesh serving
+phases (12 and 16's page split and tp=8) run at 4 of the 32 layers
+(``CUT_LAYERS``):
 
 1. build every kernel from ``runbookai_tpu_torch/csrc`` with nvcc for
    sm_90a, one nvcc per source (ptxas report in ``OUT_DIR/ptxas.txt``);
@@ -61,8 +66,8 @@ Phases (any failure exits non-zero; one JSON object per phase on stdout):
    chunk and decode call of the forward (and, with int8 weights, every K5
    call) held against its plain version on the same inputs (fails beyond
    TOL), once serving the
-   kernel's result and once the plain version's, and where their greedy
-   streams part from phase 7's;
+   kernel's result and once the plain version's, and where the plain
+   run's greedy streams part from the kernel run's;
 10. the page-split partial kernels (K4 for decode, the chunk partial for
    T > 1) on phase 2's and phase 3's inputs cut into two page shards of
    1024 pages (the chunk partial on the prefill, the verify, and the verify
@@ -81,12 +86,11 @@ Phases (any failure exits non-zero; one JSON object per phase on stdout):
    cut to 2 layers, f32 weights and pool, on a model=8 x seq=2 and a
    model=8 x seq=1 mesh of 16 and 8 shards on the one card, against the
    unsharded forward: a prefill chunk, a decode step and a T=8 verify;
-12. the requests of phase 7 served at full depth through
-   ``TorchCudaClient.build(tp=16, devices=["cuda:0"] * 16)`` (model=8 x
-   seq=2) over a 256-page pool: pages of both page shards must be
-   allocated, the partial kernels' counts must rise and K1's and K2's
-   stay 0; then, at 8 of the 32 layers (``KV_SPLIT_CHECK_LAYERS``), once
-   more under torch.profiler, as phase 8 (it fails unless the chunk and
+12. the requests of phase 7 served at 4 of the 32 layers (``CUT_LAYERS``)
+   through ``TorchCudaClient.build(tp=16, devices=["cuda:0"] * 16)``
+   (model=8 x seq=2) over a 256-page pool: pages of both page shards must
+   be allocated, the partial kernels' counts must rise and K1's and K2's
+   stay 0; then once more under torch.profiler, as phase 8 (it fails unless the chunk and
    decode partials ran the tensor-core kernels), and twice more with every
    chunk- and decode-partial call held against its plain version, as the
    witness of phase 9;
@@ -234,6 +238,30 @@ Phases (any failure exits non-zero; one JSON object per phase on stdout):
    none, else a how-to question (answered from the knowledge alone, no
    tool schemas), the first to leave its 256 tokens inside 8,192.
    ``--knowledge`` runs the build and this phase alone.
+20. (after phase 19) the eval suite through the port's CLI, in this
+   process, as phase 18 runs its commands (``llm.provider: jax-tpu``,
+   llama3-8b-instruct at full width, bf16, random weights from seed 0,
+   byte tokenizer, phase 15's schema limits, 512 new tokens a call,
+   ``time.time`` pinned). ``eval_simulated``: ``simulate eval --n 8 --seed
+   0 --concurrency 4`` at all 32 layers, graphs on: eight generated
+   scenarios, four investigations at a time on the one engine, each at
+   ``run_live``'s own budgets (20 iterations, the state machine's
+   defaults). It fails unless the command exits 0 with no engine crash,
+   every case row is ``completed``, every guided document parses under its
+   schema, K1 and K2 launched, the graphs replayed, ``summary.json`` and
+   the report with its fault-family and adversarial breakdown were
+   written, and the decode forwards carried more than one row on average
+   and two or more at most (rows counted a forward, not tokens a step).
+   ``eval_fixtures`` and ``eval_fixtures_graphs_off``: ``eval`` over the
+   sample's ``payment-db-pool`` case alone (``--concurrency 1``) at 2 of
+   the 32 layers (``EVAL_FIXTURE_LAYERS``), graphs on and off: the case
+   rows (result, score, dimensions, event counts, iterations) and every
+   call's tokens must be equal. The concurrent run is not compared on and off: its batches
+   follow the host's timing. Each line carries the wall, cases a minute,
+   guided tokens a second, each case's calls, prompt and completion tokens
+   and TTFT p50/p99, the rows a decode forward (mean, largest), the triage
+   baseline and pass@1 (random weights: it measures nothing about the
+   model). ``--eval`` runs the build and this phase alone.
 
 Then it prints the kernels' line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -287,6 +315,7 @@ one process: idle share and wall of each run, in
 from __future__ import annotations
 
 import asyncio
+import faulthandler
 import json
 import subprocess
 import sys
@@ -328,11 +357,18 @@ PG = 2
 FORWARD_TP_TOL = 1e-3
 FORWARD_TP_LAYERS = 2
 TP_PAGES = 256  # engine_kv_split: about 190 pages in use cross 128 per shard
-KV_SPLIT_CHECK_LAYERS = 8  # depth of the page split's profiled rerun and witness
+# Depth of the profiled reruns of the serving configurations but int8's, of
+# every witness and of the mesh serving phases (the page split, its fp8
+# pool, tp=8 over fp8): with these at full depth (the page split's checks at
+# 4) the whole run took 1,067.9 s on an H100 at 700 W, too near the 1,200 s
+# it must finish in; these phases took 527.4 s of it.
+CUT_LAYERS = 4
+WATCHDOG_S = 1140  # under the 1,200 s a run must end in, build included
 
 
 _LOG = OUT_DIR / "chip_smoke.jsonl"  # every line of a run, beyond the tool's 24 KB
-_since = [time.perf_counter()]
+_START = time.perf_counter()
+_since = [_START]
 
 
 def emit(obj: dict) -> None:
@@ -342,6 +378,8 @@ def emit(obj: dict) -> None:
         now = time.perf_counter()
         obj = {**obj, "phase_s": now - _since[0]}
         _since[0] = now
+        print(f"chip_smoke: {obj['phase']} {obj['phase_s']:.1f} s "
+              f"(at {now - _START:.1f} s)", file=sys.stderr, flush=True)
     line = json.dumps(obj)
     print(line, flush=True)
     with _LOG.open("a") as f:
@@ -2304,7 +2342,7 @@ def phase_graphs_off(torch, weights: str, served: dict, overlap: bool = True) ->
     """``weights``'s serving phase again with the step graphs off (the eager
     forward): its greedy streams must equal ``served``'s (graphs on) token
     for token, and it reports whether both issued the same forwards."""
-    off = phase_engine(torch, weights, overlap, graphs=False)
+    off = phase_engine(torch, weights, overlap, graphs=False, layers=served["layers"])
     off["same_forwards_as_graphs"] = (eager_forwards(off["dispatches"])
                                       == eager_forwards(served["dispatches"]))
     off["first_divergence_from_graphs"] = first_divergence(off["greedy_tokens"],
@@ -2747,11 +2785,12 @@ def phase_witness(torch, pa, weights: str, served: dict, run=None, name: str = "
     did; the second serves the plain version's, which shows how far the
     greedy streams of random weights move under the kernel's rounding
     alone. Each run records where its streams first differ from the
-    serving phase's. ``run`` (default: the serving phase of ``weights`` with
+    serving phase's or, where it ran at another depth than the serving
+    phase, the plain run where its streams first differ from the kernel
+    run's. ``run`` (default: the serving phase of ``weights`` with
     the step graphs off, since a replay calls no module function) serves
     the requests; ``modes`` picks the runs. ``layers`` cuts the default
-    run's depth; its streams then come from another model than the serving
-    phase's, and no share of equal tokens is reported."""
+    run's depth."""
     from runbookai_tpu_torch.models import llama
     from runbookai_tpu_torch.ops import qmm
     from runbookai_tpu_torch.parallel import kv_split
@@ -2809,7 +2848,7 @@ def phase_witness(torch, pa, weights: str, served: dict, run=None, name: str = "
             return ref if serve_plain[0] else out
         return call
 
-    runs = {}
+    runs, streams = {}, {}
     kernels = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in targets]
     for (mod, attr, kernel), (_, _, plain) in zip(kernels, targets):
         setattr(mod, attr, checked(attr, kernel, plain))
@@ -2821,11 +2860,17 @@ def phase_witness(torch, pa, weights: str, served: dict, run=None, name: str = "
             metrics = res["engine_metrics"]
             runs[mode] = {"spec_drafted": metrics.get("spec_drafted"),
                           "spec_accepted": metrics.get("spec_accepted"),
-                          "completion_tokens": res["completion_tokens"]}
-            if layers is None:
-                runs[mode].update(same_greedy_tokens_as_serving=same_token_share(
-                    res["greedy_tokens"], served["greedy_tokens"]), first_divergence=(
-                    first_divergence(res["greedy_tokens"], served["greedy_tokens"])))
+                          "completion_tokens": res["completion_tokens"],
+                          "layers": res["layers"]}
+            streams[mode] = res["greedy_tokens"]
+            if res["layers"] == served["layers"]:
+                base, against = served["greedy_tokens"], "serving"
+            else:  # another model: the plain run against the kernel run
+                base, against = streams.get("kernel") if mode != "kernel" else None, "kernel_run"
+            if base is not None:
+                runs[mode].update({f"same_greedy_tokens_as_{against}": same_token_share(
+                    res["greedy_tokens"], base), "first_divergence": first_divergence(
+                    res["greedy_tokens"], base)})
     finally:
         for mod, attr, kernel in kernels:
             setattr(mod, attr, kernel)
@@ -2836,7 +2881,7 @@ def phase_witness(torch, pa, weights: str, served: dict, run=None, name: str = "
                                  f"version (max |err| {rec['max_abs_err']:.3e}), or "
                                  f"non-finite")
     return {"phase": name or ENGINE_PHASES[weights] + "_witness", "tol": TOL["bfloat16"],
-            "step_graphs": False, "layers": layers,
+            "step_graphs": False, "layers": runs[modes[0]]["layers"],
             **seen, "served": {"spec_drafted": served["engine_metrics"].get("spec_drafted"),
                                "spec_accepted": served["engine_metrics"].get(
                                    "spec_accepted")},
@@ -2852,18 +2897,26 @@ BIAS_BYTE = ord("a")
 LOGPROB_TOL = 1e-3
 
 
-def build_guided_client(torch, fast_forward: bool = False, graphs: bool = True):
+def build_guided_client(torch, fast_forward: bool = False, graphs: bool = True,
+                        layers: Optional[int] = None):
     """bf16 8B from seed 0, byte tokenizer, the serving engine (grammar
     fast-forward on request, step graphs unless ``graphs`` is False), the
-    guided phase's schema limits."""
+    guided phase's schema limits; ``layers`` cuts the depth."""
+    import dataclasses
+    from unittest import mock
+
     from runbookai_tpu_torch.model.schema_guided import SchemaLimits
     from runbookai_tpu_torch.model.torch_cuda import TorchCudaClient
+    from runbookai_tpu_torch.models import llama
 
-    return TorchCudaClient.build(ENGINE_MODEL, device=DEVICE, dtype=torch.bfloat16, seed=0,
-                                 max_new_tokens=GUIDED_MAX_NEW,
-                                 schema_limits=SchemaLimits(**GUIDED_LIMITS),
-                                 engine={"grammar_fast_forward": fast_forward,
-                                         "step_graphs": graphs})
+    cfg = llama.get_config(ENGINE_MODEL)
+    depth = {ENGINE_MODEL: dataclasses.replace(cfg, n_layers=layers or cfg.n_layers)}
+    with mock.patch.dict(llama.CONFIGS, depth):
+        return TorchCudaClient.build(ENGINE_MODEL, device=DEVICE, dtype=torch.bfloat16, seed=0,
+                                     max_new_tokens=GUIDED_MAX_NEW,
+                                     schema_limits=SchemaLimits(**GUIDED_LIMITS),
+                                     engine={"grammar_fast_forward": fast_forward,
+                                             "step_graphs": graphs})
 
 
 def guided_prompt() -> str:
@@ -2924,7 +2977,7 @@ def check_logprobs(out) -> dict:
 
 
 def phase_guided(torch, fast_forward: bool = False, extras: bool = True,
-                 graphs: bool = True) -> dict:
+                 graphs: bool = True, layers: Optional[int] = None) -> dict:
     """Serve the guided phase's requests on a fresh client: fails unless
     every guided output parses, validates against its schema and finished
     on a stop token (or completed and then padded whitespace to its
@@ -2933,13 +2986,14 @@ def phase_guided(torch, fast_forward: bool = False, extras: bool = True,
     biased stream is the forced byte, the logprobs hold
     (:func:`check_logprobs`), and the seeded row served again alone gives
     the same tokens; with ``fast_forward``, unless forced tokens were folded;
-    with ``graphs``, unless the step graphs replayed."""
+    with ``graphs``, unless the step graphs replayed. ``layers`` cuts the
+    depth."""
     import json as _json
 
     from runbookai_tpu_torch.agent.llm_parser import SCHEMA_MODELS
 
     free_device(torch)
-    client = build_guided_client(torch, fast_forward, graphs)
+    client = build_guided_client(torch, fast_forward, graphs, layers)
     torch.cuda.synchronize()
     core = client.core
     picks: list[int] = []
@@ -3004,7 +3058,8 @@ def phase_guided(torch, fast_forward: bool = False, extras: bool = True,
     result = {"phase": ("engine_guided" + ("_fast_forward" if fast_forward else "")
                         + ("" if graphs else "_graphs_off")), "step_graphs": graphs,
               "graph_capture_s": core.metrics["graph_capture_s"],
-              "model": ENGINE_MODEL, "schema_limits": GUIDED_LIMITS,
+              "model": ENGINE_MODEL, "layers": core.cfg.n_layers,
+              "schema_limits": GUIDED_LIMITS,
               "max_new_tokens": GUIDED_MAX_NEW, "requests": len(outs),
               "guided": docs, "guided_tokens": guided_tokens,
               "wall_s": wall, "guided_tokens_per_s": guided_tokens / wall,
@@ -3046,7 +3101,7 @@ def guided_line(res: dict) -> dict:
 GUIDED_PROFILE_STEPS = (16, 32)
 
 
-def phase_guided_profile(torch) -> dict:
+def phase_guided_profile(torch, layers: Optional[int] = None) -> dict:
     """The guided phase's requests again on a fresh client, the engine
     stepped in this thread, with a window of ``GUIDED_PROFILE_STEPS[1]``
     steps (after the first ``GUIDED_PROFILE_STEPS[0]``, all requests
@@ -3055,14 +3110,14 @@ def phase_guided_profile(torch) -> dict:
     wall (profiler on). A whole run would trace over a million kernels. The
     requests are those ``complete()`` and ``engine.generate`` submit. Fails
     unless decode calls ran the tensor-core kernel, and if a removed
-    instantiation ran."""
+    instantiation ran. ``layers`` cuts the depth."""
     from torch.profiler import ProfilerActivity, profile
 
     from runbookai_tpu_torch.agent.llm_parser import SCHEMA_MODELS
     from runbookai_tpu_torch.engine.request import EngineRequest
 
     free_device(torch)
-    client = build_guided_client(torch)
+    client = build_guided_client(torch, layers=layers)
     core = client.core
     jobs = [client._completion_request(guided_prompt(), None, schema)
             for schema in (None, *SCHEMA_MODELS)] + list(extra_requests(client).values())
@@ -3095,6 +3150,7 @@ def phase_guided_profile(torch) -> dict:
     busy = sum(v[0] for v in classes.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     return {"phase": "engine_guided_profile", "window_steps": GUIDED_PROFILE_STEPS,
+            "layers": core.cfg.n_layers,
             "wall_ms": wall * 1e3, "device_busy_ms": busy,
             "idle_share": (1.0 - busy / (wall * 1e3)) if busy else None,
             "window": window,
@@ -4101,6 +4157,233 @@ def knowledge_phases(torch) -> None:
                                          f"another {key}")
             emit(agent_line({**off, "same_as_graphs": True}))
 
+
+# Phase 20: `simulate eval` and `eval` through the port's CLI: live
+# investigations side by side on the continuous-batching engine. Sized by
+# measurement (H100 at 700 W): 8 scenarios at 32 layers took 162.5 s (3.67
+# rows a decode forward), 4 took 141.6 s (1.54: one case runs its 20
+# iterations alone), and the one-case pair took 49.8 s and 130.0 s at 8
+# layers, 3.6 s and 6.5 s at 2. So 8 scenarios and the pair at 2 layers.
+EVAL_N = 8  # generated scenarios, drawn from EVAL_SEED
+EVAL_SEED = 0
+EVAL_CONCURRENCY = 4
+EVAL_LAYERS = None  # the simulated run's depth: all 32 layers
+EVAL_FIXTURE_CASE = "payment-db-pool"  # the deterministic pair's one case
+EVAL_FIXTURE_LAYERS = 2  # the pair's depth
+EVAL_FIXTURES = ROOT / "examples" / "evals" / "investigation-fixtures.sample.json"
+
+
+def eval_config(tmp: Path) -> Path:
+    """The phase's ``config.yaml``: the 8B from seed 0 in bf16 on the
+    serving engine, byte tokenizer, 512 new tokens a call. ``run_live``
+    builds each case's simulated tools from the case itself."""
+    import yaml
+
+    path = tmp / "config.yaml"
+    path.write_text(yaml.safe_dump({
+        "runbook_dir": str(tmp / "rb"),
+        "llm": {"provider": "jax-tpu", "model": ENGINE_MODEL, "max_new_tokens": AGENT_MAX_NEW}}))
+    return path
+
+
+def eval_argv(kind: str, tmp: Path) -> list[str]:
+    """``simulate eval`` over EVAL_N generated scenarios, EVAL_CONCURRENCY at
+    a time, or ``eval`` over one case of the sample fixtures, alone."""
+    if kind == "simulated":
+        return ["simulate", "eval", "--n", str(EVAL_N), "--seed", str(EVAL_SEED),
+                "--concurrency", str(EVAL_CONCURRENCY), "--out", str(tmp / "out")]
+    raw = json.loads(EVAL_FIXTURES.read_text())
+    raw["cases"] = [c for c in raw["cases"] if c["case_id"] == EVAL_FIXTURE_CASE]
+    fixtures = tmp / "fixtures.json"
+    fixtures.write_text(json.dumps(raw))
+    return ["eval", "--fixtures", str(fixtures), "--concurrency", "1", "--name", "fixtures",
+            "--out", str(tmp / "out")]
+
+
+def phase_eval(torch, kind: str, layers: Optional[int], graphs: bool = True) -> dict:
+    """``python -m runbookai_tpu_torch <eval_argv(kind)> --device DEVICE``
+    in this process on :func:`eval_config`, as :func:`phase_agent` runs its
+    commands: the client is ``TorchCudaClient.from_config``'s at ``layers``
+    of the 8B's layers (None: all 32), built with phase 15's schema limits
+    and ``engine={"step_graphs": graphs}``; launch counts are zeroed once it
+    is built and read when the command returns; ``time.time`` is pinned.
+    Each engine request is tagged with its case (a context variable set
+    where ``run_live`` builds the case's tools), and each decode dispatch
+    records its rows (the decoding requests: every one of its k forwards
+    carries them). Fails unless the command exits 0 with no engine crash,
+    every case row is ``completed``, every guided call's document parses
+    under its schema (:func:`agent_document`), K1 and K2 launched, the step
+    graphs replayed (graphs on) or not (off), and ``summary.json`` and the
+    report (``simulated``: with its fault-family and adversarial breakdown)
+    were written; ``simulated`` also fails unless decode forwards averaged
+    more than one row and one carried two or more."""
+    import contextlib
+    import contextvars
+    import dataclasses
+    import io
+    import tempfile
+    from unittest import mock
+
+    from runbookai_tpu_torch import __main__ as cli
+    from runbookai_tpu_torch.engine.async_engine import AsyncEngine
+    from runbookai_tpu_torch.evalsuite import runner
+    from runbookai_tpu_torch.model.schema_guided import SchemaLimits
+    from runbookai_tpu_torch.model.torch_cuda import TorchCudaClient
+    from runbookai_tpu_torch.models import llama
+
+    free_device(torch)
+    built: list = []
+    rows: list = []  # (decoding rows, forwards) a decode dispatch
+    build = TorchCudaClient.build.__func__
+    from_config = TorchCudaClient.from_config.__func__
+
+    def counted_from_config(cls, *args, **kw):
+        t0 = time.perf_counter()
+        client = from_config(cls, *args, **kw)
+        torch.cuda.synchronize()
+        built.append((client, time.perf_counter() - t0))
+        core = client.core
+        decode_multi, run_spec = core._decode_multi, core._run_decode_spec
+
+        def counted_decode(positions, ctx_lens, si, k, mask=None):
+            rows.append((len(core.decoding), k))
+            return decode_multi(positions, ctx_lens, si, k, mask)
+
+        def counted_spec(drafts, k):
+            rows.append((len(core.decoding), 1))  # one verify forward
+            return run_spec(drafts, k)
+
+        core._decode_multi, core._run_decode_spec = counted_decode, counted_spec
+        reset_counts()
+        return client
+
+    def build_graphs(cls, *args, **kw):
+        return build(cls, *args, **kw, schema_limits=SchemaLimits(**GUIDED_LIMITS),
+                     engine={"step_graphs": graphs})
+
+    case_of: dict = {}
+    current = contextvars.ContextVar("eval_case", default=None)
+    executor_for_case, submit = runner._executor_for_case, AsyncEngine._submit
+
+    def tagged_executor(case):
+        current.set(case.case_id)  # in the case's task: its engine calls inherit it
+        return executor_for_case(case)
+
+    def tagged_submit(self, req):
+        case_of[req.request_id] = current.get()
+        return submit(self, req)
+
+    cfg = llama.get_config(ENGINE_MODEL)
+    depth = {ENGINE_MODEL: dataclasses.replace(cfg, n_layers=layers or cfg.n_layers)}
+    out, err = io.StringIO(), io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = [*eval_argv(kind, Path(tmp)), "--device", DEVICE,
+                "--config", str(eval_config(Path(tmp)))]
+        with mock.patch.object(TorchCudaClient, "from_config",
+                               classmethod(counted_from_config)), \
+                mock.patch.object(TorchCudaClient, "build", classmethod(build_graphs)), \
+                mock.patch.object(runner, "_executor_for_case", tagged_executor), \
+                mock.patch.object(AsyncEngine, "_submit", tagged_submit), \
+                mock.patch.dict(llama.CONFIGS, depth), \
+                mock.patch("time.time", return_value=AGENT_NOW), \
+                contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            t0 = time.perf_counter()
+            rc = cli.main(argv)
+            wall = time.perf_counter() - t0
+        report_name = "simulated-incidents" if kind == "simulated" else "fixtures"
+        written = {p.name: json.loads(p.read_text())
+                   for p in (Path(tmp) / "out").glob("*.json")}
+    launched = counts()
+    (client, build_s), = built
+    core = client.core
+    report = json.loads(out.getvalue())
+    name = f"eval_{kind}" + ("" if graphs else "_graphs_off")
+    if rc != 0 or client.engine.crash_count:
+        raise AssertionError(f"{name}: exit {rc}, {client.engine.crash_count} crashes")
+    failed = [c for c in report["cases"] if c["status"] != "completed"]
+    if failed:
+        raise AssertionError(f"{name}: cases not completed: {failed}")
+    if "summary.json" not in written or f"{report_name}.json" not in written:
+        raise AssertionError(f"{name}: reports written: {sorted(written)}")
+    if kind == "simulated" and set(written[f"{report_name}.json"].get("breakdown", {})) != {
+            "fault_family", "adversarial"}:
+        raise AssertionError(f"{name}: no fault-family and adversarial breakdown")
+    per_case: dict = {}
+    docs = []
+    for i, req in enumerate(core.finished):
+        guided = req.sampling.guided
+        text = core.output_for(req).text
+        if guided:
+            agent_document(text, guided, req)
+        case = per_case.setdefault(case_of.get(req.request_id), {
+            "llm_calls": 0, "prompt_tokens": 0, "completion_tokens": 0, "ttft_ms": []})
+        case["llm_calls"] += 1
+        case["prompt_tokens"] += len(req.prompt_ids) - len(req.folded_out_ids)
+        case["completion_tokens"] += req.num_generated
+        case["ttft_ms"].append(req.ttft_ms)
+        docs.append([case_of.get(req.request_id), guided, req.all_out_ids])
+    for case in per_case.values():
+        case["ttft_ms"] = percentiles(case["ttft_ms"])
+    metrics = dict(core.metrics)
+    if not (launched["paged_decode_attention"] and launched["paged_chunk_attention"]):
+        raise AssertionError(f"{name}: K1 or K2 not launched: {launched}")
+    if (metrics["graph_replays"] > 0) != graphs:
+        raise AssertionError(f"{name}: step graphs {graphs}, but "
+                             f"{metrics['graph_replays']} replays")
+    forwards = sum(k for _, k in rows)
+    mean_rows = sum(n * k for n, k in rows) / forwards if forwards else 0.0
+    max_rows = max((n for n, _ in rows), default=0)
+    if kind == "simulated" and not (mean_rows > 1 and max_rows >= 2):
+        raise AssertionError(f"{name}: the cases did not share decode steps: "
+                             f"{mean_rows} rows a forward on average, {max_rows} at most")
+    guided_tokens = sum(r.num_generated for r in core.finished if r.sampling.guided)
+    n_cases = len(report["cases"])
+    triage = [json.loads(line) for line in err.getvalue().splitlines()
+              if line.startswith("{")]
+    return {"phase": name, "step_graphs": graphs, "model": ENGINE_MODEL,
+            "layers": layers or cfg.n_layers, "schema_limits": GUIDED_LIMITS,
+            "argv": argv[:-1], "build_s": build_s,
+            "graph_capture_s": metrics["graph_capture_s"], "wall_s": wall,
+            "cases": n_cases, "cases_per_min": 60 * n_cases / wall,
+            "pass_rate": report["pass_rate"],
+            "pass_rate_note": "random weights: pass@1 measures nothing about the model",
+            "breakdown": report.get("breakdown"), "triage_baseline": triage,
+            "llm_calls": len(core.finished),
+            "prompt_tokens": sum(c["prompt_tokens"] for c in per_case.values()),
+            "completion_tokens": sum(c["completion_tokens"] for c in per_case.values()),
+            "guided_tokens": guided_tokens, "guided_tokens_per_s": guided_tokens / wall,
+            "grammar_forced_tokens": metrics["grammar_forced_tokens"],
+            "decode_forwards": forwards, "rows_per_decode_forward": mean_rows,
+            "max_rows_per_decode_forward": max_rows, "per_case": per_case,
+            "graph_replays": metrics["graph_replays"], "launches": launched,
+            "engine_metrics": metrics, "report_cases": report["cases"], "documents": docs}
+
+
+def eval_phases(torch) -> None:
+    """``eval_simulated`` at all 32 layers, then ``eval_fixtures`` at
+    EVAL_FIXTURE_LAYERS with the step graphs on and off. Only the one-case pair is
+    compared: alone on the engine, its calls and their batches are
+    deterministic, and the report's case rows (result, score, dimensions,
+    event counts, iterations) and every call's tokens must be equal. The
+    concurrent run is not compared between graphs on and off: which rows
+    share a step, and so the batch each forward sees, follows the host's
+    timing."""
+    emit(eval_line(phase_eval(torch, "simulated", EVAL_LAYERS)))
+    on = phase_eval(torch, "fixtures", EVAL_FIXTURE_LAYERS)
+    emit(eval_line(on))
+    off = phase_eval(torch, "fixtures", EVAL_FIXTURE_LAYERS, graphs=False)
+    for key in ("report_cases", "documents"):
+        if on[key] != off[key]:
+            raise AssertionError(f"eval_fixtures: graphs off gave other {key}")
+    emit(eval_line({**off, "same_as_graphs": True}))
+
+
+def eval_line(res: dict) -> dict:
+    """An eval phase's line: its token streams counted, not listed."""
+    return {**{k: v for k, v in res.items() if k != "documents"},
+            "documents": len(res["documents"])}
+
+
 def main() -> int:
     try:
         import torch
@@ -4132,6 +4415,7 @@ def main() -> int:
     if sys.argv[1:2] == ["--overlap-ab"]:
         print(json.dumps(phase_build()), flush=True)
         return overlap_ab()
+    faulthandler.dump_traceback_later(WATCHDOG_S - (time.perf_counter() - _START), exit=True)
     _LOG.write_text("")
     emit({"phase": "env", "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0)})
@@ -4141,6 +4425,9 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--knowledge"]:
         knowledge_phases(torch)
+        return 0
+    if sys.argv[1:2] == ["--eval"]:
+        eval_phases(torch)
         return 0
     dec = phase_decode(pa, torch)
     emit(dec)
@@ -4171,17 +4458,20 @@ def main() -> int:
     eng = phase_engine(torch)
     emit(served_line(eng))
     emit(served_line(phase_graphs_off(torch, "bfloat16", eng)))
-    prof = phase_profile(torch)
+    # The profiled reruns and the witnesses at CUT_LAYERS of the 32 layers.
+    prof = phase_profile(torch, layers=CUT_LAYERS)
     emit(prof)
-    prof_off = phase_profile(torch, graphs=False)
+    prof_off = phase_profile(torch, graphs=False, layers=CUT_LAYERS)
     prof_off["idle_share_graphs_on"] = prof["idle_share"]
     emit(prof_off)
     eng8 = phase_engine(torch, weights="int8")
     emit(served_line(eng8))
     emit(served_line(phase_graphs_off(torch, "int8", eng8)))
+    # int8's at full depth: at CUT_LAYERS its profile held no K5 call on
+    # one of the two tensor-core routes that it must show.
     emit(phase_profile(torch, weights="int8"))
-    emit(phase_witness(torch, pa, "bfloat16", eng))
-    emit(phase_witness(torch, pa, "int8", eng8))
+    emit(phase_witness(torch, pa, "bfloat16", eng, layers=CUT_LAYERS))
+    emit(phase_witness(torch, pa, "int8", eng8, layers=CUT_LAYERS))
     # bf16 weights over an fp8 pool: half of phase 7's pool bytes, the fp8
     # instantiations only (counts and profile), every K1/K2 call witnessed.
     eng_f8 = phase_engine(torch, weights="fp8")
@@ -4192,8 +4482,8 @@ def main() -> int:
         eng_f8["greedy_tokens"], eng["greedy_tokens"])
     emit(served_line(eng_f8))
     emit(served_line(phase_graphs_off(torch, "fp8", eng_f8)))
-    emit(phase_profile(torch, weights="fp8"))
-    emit(phase_witness(torch, pa, "fp8", eng_f8, modes=("kernel",)))
+    emit(phase_profile(torch, weights="fp8", layers=CUT_LAYERS))
+    emit(phase_witness(torch, pa, "fp8", eng_f8, modes=("kernel",), layers=CUT_LAYERS))
     # Mixed dispatch on (bf16): W1 on the main path, its launches counted,
     # its calls witnessed. Not gated on the streams: the ragged blocks and
     # the split path round bf16 at other places.
@@ -4204,8 +4494,8 @@ def main() -> int:
         mixed["greedy_tokens"], eng["greedy_tokens"])
     emit(served_line(mixed))
     emit(served_line(phase_graphs_off(torch, "mixed", mixed)))
-    emit(phase_profile(torch, weights="mixed"))
-    emit(phase_witness(torch, pa, "mixed", mixed))
+    emit(phase_profile(torch, weights="mixed", layers=CUT_LAYERS))
+    emit(phase_witness(torch, pa, "mixed", mixed, layers=CUT_LAYERS))
     # Mixed dispatch over an fp8 pool: W1's fp8 instantiation on the main path.
     mixed_f8 = phase_engine(torch, weights="mixed_fp8")
     emit(served_line(mixed_f8))
@@ -4222,7 +4512,7 @@ def main() -> int:
                              f"greedy tokens at {off['first_divergence_from_engine']}")
     emit(served_line(off))
     emit(served_line(phase_graphs_off(torch, "bfloat16", off, overlap=False)))
-    off_prof = phase_profile(torch, overlap=False)
+    off_prof = phase_profile(torch, overlap=False, layers=CUT_LAYERS)
     off_prof["idle_share_overlap_on"] = prof["idle_share"]
     emit(off_prof)
     # Guided JSON at the JAX client's defaults (bf16): the orchestrator's
@@ -4238,11 +4528,11 @@ def main() -> int:
     guided_off["same_tokens_as_graphs"] = True
     emit(guided_line(guided_off))
     emit(guided_line(phase_guided(torch, fast_forward=True, extras=False)))
-    guided_prof = phase_guided_profile(torch)
+    guided_prof = phase_guided_profile(torch, layers=CUT_LAYERS)
     guided_prof["idle_share_engine"] = prof["idle_share"]
     emit(guided_prof)
     emit(phase_witness(torch, pa, "bfloat16", guided,
-                       run=lambda: phase_guided(torch, graphs=False),
+                       run=lambda: phase_guided(torch, graphs=False, layers=CUT_LAYERS),
                        name="engine_guided_witness", modes=("kernel",)))
     # `investigate` and `ask` through the port's CLI (phase 18), graphs on
     # and off: the same output byte for byte.
@@ -4250,6 +4540,9 @@ def main() -> int:
     # The knowledge path (phase 19): the bge encoder beside the 8B, sync and
     # search, and the agent over the knowledge base, graphs on and off.
     knowledge_phases(torch)
+    # The eval suite (phase 20): live investigations sharing the engine's
+    # decode steps at full depth, then the one-case eval, graphs on and off.
+    eval_phases(torch)
     decp = phase_decode_partial(pa, torch)
     emit(decp)
     chkp = phase_chunk_partial(pa, torch)
@@ -4257,26 +4550,21 @@ def main() -> int:
     part_f8 = phase_partial_fp8(pa, torch)
     emit(part_f8)
     emit(phase_forward_tp(torch))
-    split = phase_engine(torch, weights="kv_split")
-    # Not gated: the sharded forward sums bf16 partial products in another
-    # order, so greedy choices between near-equal logits can flip.
-    split["same_greedy_tokens_as_engine"] = same_token_share(
-        split["greedy_tokens"], eng["greedy_tokens"])
+    # The mesh serving phases at CUT_LAYERS of the 32 layers.
+    split = phase_engine(torch, weights="kv_split", layers=CUT_LAYERS)
     emit(served_line(split))
     emit(served_line(phase_graphs_off(torch, "kv_split", split)))
-    # The profiled rerun and the witness at a quarter of the depth: at full
-    # depth they were the two longest phases (275 and 89 s).
-    emit(phase_profile(torch, weights="kv_split", layers=KV_SPLIT_CHECK_LAYERS))
-    emit(phase_witness(torch, pa, "kv_split", split, layers=KV_SPLIT_CHECK_LAYERS))
+    emit(phase_profile(torch, weights="kv_split", layers=CUT_LAYERS))
+    emit(phase_witness(torch, pa, "kv_split", split, layers=CUT_LAYERS))
     # The page split over fp8 page shards: the fp8 K4 and chunk partial.
-    split_f8 = phase_engine(torch, weights="kv_split_fp8")
+    split_f8 = phase_engine(torch, weights="kv_split_fp8", layers=CUT_LAYERS)
     if split_f8["pool_bytes"] * 2 != split["pool_bytes"]:
         raise AssertionError(f"fp8 page-split pool {split_f8['pool_bytes']} B, bf16 "
                              f"{split['pool_bytes']} B: not half")
     emit(served_line(split_f8))
     emit(served_line(phase_graphs_off(torch, "kv_split_fp8", split_f8)))
     # A tensor-parallel mesh over fp8 pool shards (tp=8: heads only).
-    tp8 = phase_engine(torch, weights="tp8_fp8")
+    tp8 = phase_engine(torch, weights="tp8_fp8", layers=CUT_LAYERS)
     emit(served_line(tp8))
     emit(served_line(phase_graphs_off(torch, "tp8_fp8", tp8)))
 

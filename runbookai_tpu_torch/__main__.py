@@ -1,4 +1,4 @@
-"""``python -m runbookai_tpu_torch chat|complete|ask|investigate|knowledge``.
+"""``python -m runbookai_tpu_torch chat|complete|ask|investigate|knowledge|eval|simulate``.
 
 ``chat``/``complete "<prompt>"`` serve one turn.
 
@@ -31,6 +31,17 @@ retriever, the ``search_knowledge`` tool and, with
 ``knowledge sync|search <query>|stats|add <file>|validate`` run the JAX
 package's ``runbook knowledge`` on the same config and ``knowledge.db``: the
 bge encoder and the vector matrix on ``--device`` (default: the card).
+
+``eval`` and ``simulate generate|faults|investigate|eval|provision`` are the
+JAX package's ``runbook eval`` and ``runbook simulate``, with its flags and
+defaults: ``eval --offline`` scores fixture results without a model, ``eval``
+runs each fixture case as a live investigation (``evalsuite/runner.py::
+run_live``, ``--concurrency`` at a time on one engine) and ``eval --all`` the
+public benchmarks' converted datasets; ``simulate`` generates seeded fault
+scenarios, investigates one, or runs N of them through ``run_live`` with a
+per-family and adversarial breakdown. The commands that serve the model
+build it from ``--config`` on ``--device`` (default: the card). ``eval
+--shard auto`` and ``simulate provision --apply`` are not ported.
 """
 
 from __future__ import annotations
@@ -40,6 +51,8 @@ import asyncio
 import json
 import sys
 import time
+from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -125,8 +138,6 @@ def cmd_investigate(args) -> int:
 
 def cmd_knowledge(args) -> int:
     """The JAX CLI's ``cmd_knowledge`` with the retriever on ``--device``."""
-    from pathlib import Path
-
     config = load_config(path=args.config)
     if args.knowledge_cmd == "auth":
         raise unported("`knowledge auth` (the Google OAuth flow, "
@@ -182,6 +193,315 @@ def cmd_knowledge(args) -> int:
     return 0 if not problems else 1
 
 
+def _live_eval_report(args, cases, name: str,
+                      case_labels: Optional[dict] = None) -> int:
+    """Shared run-live-and-report tail for eval and simulate eval.
+
+    ``case_labels`` (case_id -> {label: value}) adds grouped pass rates —
+    simulate eval reports per-fault-family and per-adversarial-split
+    accuracy with it."""
+    from runbookai_tpu_torch.cli.runtime import build_runtime
+    from runbookai_tpu_torch.evalsuite.runner import run_live, write_reports
+
+    runtime = build_runtime(load_config(path=args.config), interactive=False,
+                            device=args.device)
+    report = asyncio.run(_serving(runtime.llm, run_live(
+        cases, lambda: runtime.llm, name=name, concurrency=args.concurrency)))
+    out = report.to_dict()
+    if case_labels:
+        out["breakdown"] = _pass_rate_breakdown(report.cases, case_labels)
+    summary_path = write_reports([report], args.out)
+    out_path = Path(args.out) / f"{name}.json"
+    if case_labels and out_path.exists():
+        # The per-case file write_reports produced, plus the breakdown.
+        out_path.write_text(json.dumps(out, indent=2, default=str))
+    print(json.dumps(out | {"summary_path": str(summary_path)},
+                     indent=2, default=str))
+    return 0 if report.pass_rate >= getattr(args, "min_pass_rate", 0.0) else 1
+
+
+def _pass_rate_breakdown(case_results: list, case_labels: dict) -> dict:
+    """{label_kind: {label_value: {passed, total, pass_rate}}}."""
+    out: dict = {}
+    for c in case_results:
+        labels = case_labels.get(c.get("case_id"), {})
+        for kind, value in labels.items():
+            bucket = out.setdefault(kind, {}).setdefault(
+                str(value), {"passed": 0, "total": 0})
+            bucket["total"] += 1
+            bucket["passed"] += bool(c.get("passed"))
+    for kind in out.values():
+        for bucket in kind.values():
+            bucket["pass_rate"] = round(
+                bucket["passed"] / max(1, bucket["total"]), 4)
+    return out
+
+
+def cmd_eval(args) -> int:
+    from runbookai_tpu_torch.evalsuite.runner import (
+        load_fixtures_file,
+        run_live,
+        run_offline,
+        write_reports,
+    )
+
+    if args.run_all:
+        from runbookai_tpu_torch.evalsuite.run_all import parse_shard, run_all_benchmarks
+
+        try:
+            shard = (parse_shard(args.shard)
+                     if getattr(args, "shard", None) else None)
+        except ValueError as e:
+            print(str(e), file=sys.stderr)
+            return 1
+        runner = None
+        if not args.offline:
+            from runbookai_tpu_torch.cli.runtime import build_runtime
+
+            runtime = build_runtime(load_config(path=args.config), interactive=False,
+                                    device=args.device)
+            runner = lambda cases: asyncio.run(_serving(runtime.llm, run_live(  # noqa: E731
+                cases, lambda: runtime.llm, concurrency=args.concurrency)))
+        aggregate = run_all_benchmarks(
+            datasets_root=args.datasets_root, out_dir=args.out,
+            runner=runner, min_pass_rate=args.min_pass_rate,
+            setup=args.setup_datasets, shard=shard)
+        print(json.dumps(aggregate, indent=2, default=str))
+        return 0 if aggregate["failed"] == 0 else 1
+
+    cases = load_fixtures_file(args.fixtures)
+    if args.offline:
+        report = run_offline(cases, name=args.name)
+        summary_path = write_reports([report], args.out)
+        print(json.dumps(report.to_dict()
+                         | {"summary_path": str(summary_path)},
+                         indent=2, default=str))
+        return 0 if report.pass_rate >= args.min_pass_rate else 1
+    return _live_eval_report(args, cases, name=args.name)
+
+
+def cmd_simulate(args) -> int:
+    """Incident simulator: generated fault scenarios against the fixture
+    providers (seeded novel topologies + faults with ground truth)."""
+    from runbookai_tpu_torch.simulate import (
+        FAULT_TYPES,
+        Scenario,
+        generate_scenarios,
+        to_eval_case,
+        write_scenarios,
+    )
+
+    if args.sim_cmd == "faults":
+        for name in sorted(FAULT_TYPES):
+            print(name)
+        return 0
+
+    if getattr(args, "fault", None) and args.fault not in FAULT_TYPES:
+        print(f"unknown fault type {args.fault!r}; valid: "
+              f"{', '.join(sorted(FAULT_TYPES))}", file=sys.stderr)
+        return 1
+
+    models = [m for m in (getattr(args, "models", None) or "").split(",")
+              if m] or None
+
+    if args.sim_cmd == "generate":
+        scenarios = generate_scenarios(
+            args.n, seed=args.seed, fault_type=args.fault,
+            adversarial=getattr(args, "adversarial", None), models=models)
+        paths = write_scenarios(scenarios, args.out)
+        for s, p in zip(scenarios, paths):
+            line = f"{s.scenario_id}  {s.truth['fault_type']:22s}  {p}"
+            if s.model:
+                line += f"  model={s.model}"
+            if args.reveal:
+                line += f"\n    truth: {s.truth['root_cause']}"
+            print(line)
+        return 0
+
+    if args.sim_cmd == "investigate":
+        import tempfile
+
+        from runbookai_tpu_torch.cli.runtime import build_agent, build_runtime
+
+        s = Scenario.from_json(Path(args.scenario).read_text())
+        config = load_config(path=args.config)
+        # The scenario only exists in its fixtures: force every provider
+        # into simulated mode (a real-cloud config here would query live
+        # infrastructure while the CLI claims the generated fault is the
+        # answer) and route the fixtures through the standard injection
+        # seam (providers.aws.fixtures_path -> SimulatedCloud).
+        for block in (config.providers.aws, config.providers.kubernetes,
+                      config.observability.datadog,
+                      config.observability.prometheus,
+                      config.incident.pagerduty,
+                      config.providers.github):
+            block.enabled = True
+            block.simulated = True
+        # No simulated gitlab twin: a real client here would query live
+        # infra for a synthetic incident.
+        config.providers.gitlab.enabled = False
+        with tempfile.NamedTemporaryFile("w", suffix=".json",
+                                         delete=False) as f:
+            json.dump(s.fixtures, f)
+            config.providers.aws.fixtures_path = f.name
+        try:
+            # SimulatedCloud reads the file eagerly inside build_runtime.
+            runtime = build_runtime(config, interactive=not args.yes, device=args.device)
+        finally:
+            Path(f.name).unlink(missing_ok=True)
+        agent = build_agent(runtime)
+
+        async def run() -> None:
+            async for ev in agent.run(s.query, incident_id=s.scenario_id):
+                _print_event(ev)
+
+        asyncio.run(_serving(runtime.llm, run()))
+        print(f"\n── ground truth ({s.scenario_id}) ──")
+        print(f"  fault:      {s.truth['fault_type']}")
+        print(f"  root cause: {s.truth['root_cause']}")
+        return 0
+
+    if args.sim_cmd == "eval":
+        scenarios = generate_scenarios(
+            args.n, seed=args.seed, fault_type=args.fault,
+            adversarial=getattr(args, "adversarial", None), models=models)
+        cases = [to_eval_case(s) for s in scenarios]
+        # Per-family + adversarial-split accuracy: the breakdown is what
+        # separates reasoning from keyword overlap. Multi-model runs add a
+        # per-served-model split next to them.
+        labels = {s.scenario_id: {
+            "fault_family": s.truth["fault_type"],
+            "adversarial": s.truth.get("adversarial", "none"),
+            **({"model": s.model} if s.model else {}),
+        } for s in scenarios}
+        print(json.dumps(triage_baseline(scenarios)), file=sys.stderr)
+        return _live_eval_report(args, cases, name="simulated-incidents",
+                                 case_labels=labels)
+
+    if args.sim_cmd == "provision":
+        # Real-infrastructure mode: the plan — teardown first — is printed
+        # before --apply, which the port refuses.
+        from runbookai_tpu_torch.simulate.provision import apply_plan, provision_plan
+
+        s = Scenario.from_json(Path(args.scenario).read_text())
+        plan = provision_plan(s)
+        print(plan.render())
+        if not args.apply:
+            print("dry-run (pass --apply with AWS credentials to execute)")
+            return 0
+        status = apply_plan(plan)
+        print(status)
+        return 0 if status.startswith("applied") else 1
+
+    print("unknown simulate subcommand", file=sys.stderr)
+    return 1
+
+
+def triage_baseline(scenarios) -> dict:
+    """The deterministic triage baseline: what timeline + topology analysis
+    alone (``agent/signal_triage.py``) scores on root-cause service
+    identification, the floor any LLM-led investigation should beat."""
+    from runbookai_tpu_torch.agent.signal_triage import triage_signals
+
+    hits = 0
+    for s in scenarios:
+        fx = s.fixtures
+        rep = triage_signals(
+            alarms=fx["cloudwatch_alarms"], logs=fx["cloudwatch_logs"],
+            dd_events=fx["datadog"]["events"],
+            pods=fx["kubernetes"]["pods"],
+            prom_alerts=fx["prometheus"]["alerts"],
+            incident=fx["pagerduty"][0] if fx["pagerduty"] else {},
+            known_services=[e["service"] for e in fx["aws"]["ecs"]])
+        top = rep.candidates[0]["service"] if rep.candidates else None
+        hits += top == s.truth["root_cause_service"]
+    return {"triage_baseline_top1_service_accuracy": round(hits / max(1, len(scenarios)), 4),
+            "cases": len(scenarios)}
+
+
+def _runtime_options(parser) -> None:
+    parser.add_argument("--config", help="explicit config.yaml path")
+    parser.add_argument("--device", default="cuda",
+                        help="where llm.provider jax-tpu serves (default: the card)")
+
+
+def _eval_parsers(sub) -> None:
+    """``simulate`` and ``eval`` with the JAX CLI's flags and defaults; the
+    commands that serve the model also take ``--config`` and ``--device``."""
+    adversarial = ["misleading_symptom", "two_fault", "signal_dropout", "mix"]
+    sim = sub.add_parser("simulate",
+                         help="generated fault scenarios (incident simulator)")
+    sim_sub = sim.add_subparsers(dest="sim_cmd", required=True)
+    sim_gen = sim_sub.add_parser("generate", help="write N scenario files")
+    sim_gen.add_argument("--n", type=int, default=5)
+    sim_gen.add_argument("--seed", type=int, default=0)
+    sim_gen.add_argument("--fault", default=None,
+                         help="pin a fault type (see: simulate faults)")
+    sim_gen.add_argument("--out", default=".runbook/simulate")
+    sim_gen.add_argument("--reveal", action="store_true",
+                         help="print ground truth with each scenario")
+    sim_gen.add_argument(
+        "--adversarial", default=None, choices=adversarial,
+        help="harden scenarios: stale red-herring signals on a non-culprit "
+             "service, a concurrent second fault, or a dropped telemetry "
+             "modality")
+    sim_gen.add_argument(
+        "--models", default=None, metavar="A,B",
+        help="assign served model groups round-robin (multi-model "
+             "fleets, llm.models) so eval load exercises model routing")
+    sim_sub.add_parser("faults", help="list fault types")
+    sim_inv = sim_sub.add_parser("investigate",
+                                 help="run the agent against a scenario")
+    sim_inv.add_argument("--scenario", required=True)
+    sim_inv.add_argument("--yes", action="store_true")
+    _runtime_options(sim_inv)
+    sim_eval = sim_sub.add_parser("eval",
+                                  help="run + score N generated scenarios")
+    sim_eval.add_argument("--n", type=int, default=5)
+    sim_eval.add_argument("--seed", type=int, default=0)
+    sim_eval.add_argument("--fault", default=None)
+    sim_eval.add_argument("--concurrency", type=int, default=4)
+    sim_eval.add_argument("--min-pass-rate", type=float, default=0.0)
+    sim_eval.add_argument("--out", default=".runbook/eval-reports")
+    sim_eval.add_argument(
+        "--adversarial", default=None, choices=adversarial,
+        help="run the hardened split (reported separately in breakdown)")
+    sim_eval.add_argument(
+        "--models", default=None, metavar="A,B",
+        help="round-robin cases across served model groups (llm.models); "
+             "per-model pass rates land in the breakdown and "
+             "summary.json gains model_attribution")
+    _runtime_options(sim_eval)
+    sim_prov = sim_sub.add_parser(
+        "provision",
+        help="real-infra mode: map a scenario onto actual AWS breakage "
+             "(dry-run plan; --apply is not ported)")
+    sim_prov.add_argument("scenario", help="scenario JSON file")
+    sim_prov.add_argument("--apply", action="store_true",
+                          help="execute the break steps (tagged, reversible)")
+    sim.set_defaults(fn=cmd_simulate)
+
+    ev = sub.add_parser("eval", help="run the investigation benchmark")
+    ev.add_argument("--fixtures",
+                    default="examples/evals/investigation-fixtures.sample.json")
+    ev.add_argument("--offline", action="store_true",
+                    help="score fixture mock_results without a model")
+    ev.add_argument("--name", default="investigation")
+    ev.add_argument("--out", default=".runbook/eval-reports")
+    ev.add_argument("--concurrency", type=int, default=4)
+    ev.add_argument("--min-pass-rate", type=float, default=0.0)
+    ev.add_argument("--all", action="store_true", dest="run_all",
+                    help="run every public benchmark (rcaeval/rootly/tracerca)")
+    ev.add_argument("--datasets-root", default="examples/evals/datasets")
+    ev.add_argument("--setup-datasets", action="store_true",
+                    help="git-clone missing dataset repos first")
+    ev.add_argument("--shard", default=None, metavar="I/N",
+                    help="with --all: statically take cases i::n on this "
+                         "host ('auto', the multihost rank, is not ported)")
+    _runtime_options(ev)
+    ev.set_defaults(fn=cmd_eval)
+
+
 def _knowledge_parser(sub) -> None:
     """``knowledge`` and its sub-commands, as the JAX CLI parses them, each
     with ``--config`` and ``--device``."""
@@ -219,13 +539,12 @@ def _parser() -> argparse.ArgumentParser:
     inv.add_argument("--execute", action="store_true",
                      help="execute the remediation plan (approval-gated)")
     for cmd in (ask, inv):
-        cmd.add_argument("--config", help="explicit config.yaml path")
         cmd.add_argument("--yes", action="store_true", help="non-interactive approvals")
-        cmd.add_argument("--device", default="cuda",
-                         help="where llm.provider jax-tpu serves (default: the card)")
+        _runtime_options(cmd)
     ask.set_defaults(fn=cmd_ask)
     inv.set_defaults(fn=cmd_investigate)
     _knowledge_parser(sub)
+    _eval_parsers(sub)
     chat = sub.add_parser("chat", help="serve one chat turn")
     complete = sub.add_parser("complete", help="serve one guided-JSON completion")
     complete.add_argument("--schema", choices=sorted(SCHEMA_MODELS),

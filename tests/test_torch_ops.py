@@ -268,6 +268,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     bad = {str(f.relative_to(ROOT)): [n for n in _imported_modules(f) if _forbidden(n)]
            for f in files}
     assert {f: n for f, n in bad.items() if n} == {}
+    # The eval suite and the simulator are among them.
+    assert {f"runbookai_tpu_torch/{m}.py" for m in (
+        "evalsuite/scoring", "evalsuite/converters", "evalsuite/runner", "evalsuite/run_all",
+        "simulate/__init__", "simulate/generator", "simulate/provision")} <= set(bad)
     # And at run time: importing every module of the port loads neither.
     mods = [".".join(f.relative_to(ROOT).with_suffix("").parts)
             for f in files if f.name not in ("__main__.py", "chip_smoke.py")]
