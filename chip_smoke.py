@@ -323,6 +323,26 @@ phases (12 and 16's page split and tp=8) run at 4 of the 32 layers
    must equal speculation off. The kernels' line gives K1's, K2's and the
    merge's launches in this phase (``lora_draft_launches``). ``--lora``
    runs the build and this phase alone.
+23. Mixtral mixture-of-experts serving (after phase 22). ``moe_ffn``:
+   ``ops/moe.py::moe_ffn`` at mixtral-8x7b-instruct's widths (D 4096, F
+   14336, E 8, top 2), one layer of random experts in bf16 and in int8,
+   dropless, at N = 8 and 512 tokens against a float32 per-token
+   reference on the card (``tests/test_moe.py::_ref_moe``'s form): every
+   token's top-2 set equal to the reference's unless its 2nd and 3rd
+   probabilities lie within MOE_ROUTE_TOL, the outputs of the others
+   within MOE_TOL; then timed (CUDA events) at N = 8, 512 and 2,048 beside
+   its bound, with the bytes one call allocates above its inputs.
+   ``moe_bf16``: bf16 Mixtral at MOE_BF16_LAYERS of 32 layers through
+   ``TorchCudaClient.build``, eight greedy requests with the step graphs
+   on, then on a graphs-off twin over the same params: equal streams.
+   ``moe_int8``: the one-card deployment, int8 weights at all 32 layers
+   through ``TorchCudaClient.from_config``: its weight bytes must equal
+   ``plan_serving``'s; eight requests of 64 new tokens (tokens a second,
+   decode seconds a step, TTFT, peak memory), then eight other requests of
+   16 tokens on the same engine and on a graphs-off twin: equal streams.
+   Each serving run must launch K1 and K2 (int8 also K5); the kernels'
+   line gives their launches with the graphs on (``moe_launches``).
+   ``--moe`` runs the build and this phase alone.
 
 Then it prints the kernels' line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -5408,6 +5428,351 @@ def lora_draft_phases(torch) -> dict:
     emit(phase_draft(torch))
     return counts()
 
+# ------------------------------------------------- phase 23: Mixtral MoE serving
+
+MOE_MODEL = "mixtral-8x7b-instruct"  # D 4096, F 14336, E 8, top 2, 32/8 heads, head_dim 128
+MOE_CHECK_TOKENS = (8, 512)  # moe_ffn held against the f32 per-token reference
+MOE_TIMED_TOKENS = (8, 512, 2048)  # decode batch, one prefill chunk, a 4-row prefill
+# A bf16 moe_ffn output against the f32 reference over the same bf16 inputs:
+# each of its five roundings (gate and up products, SwiGLU, down product,
+# gated sum) costs about 2^-9 relative, so a few 1e-3 of |out| ~ 0.5 per
+# element, 1e-2 at the tail of 2M elements; int8 experts against their
+# dequantized f32 weights likewise.
+MOE_TOL = (2e-2, 2e-2)  # (atol, rtol)
+# Tokens whose 2nd and 3rd f32 probabilities lie this close may route apart
+# (the logits' float32 sums in another order); their outputs are not compared.
+MOE_ROUTE_TOL = 1e-4
+MOE_BF16_LAYERS = 8  # the bf16 tree at 8 of 32 layers: 23.5 GB
+MOE_MAX_NEW = 64  # the int8 deployment's budget a request
+MOE_SHORT_NEW = 16  # the graphs-off runs' budget
+MOE_MUST = {"bfloat16": ("paged_decode_attention", "paged_chunk_attention"),
+            "int8": ("paged_decode_attention", "paged_chunk_attention", "qmm_int8")}
+
+
+def moe_prompts(short: bool = False) -> list[str]:
+    """Eight user turns: phase 7's five and three more (the fourth repeats
+    itself, so prompt lookup drafts); ``short`` gives eight others that share
+    no first page with them (no cached prefix between the two sets)."""
+    base = prompts() + ["the payments-db pool is exhausted; " * 5,
+                        "rollback deploy 4411 now", "summarise the incident " * 9]
+    if short:
+        return [f"short {i}: " + p[::-1] for i, p in enumerate(base)]
+    return base
+
+
+def moe_layer(torch, int8: bool):
+    """One Mixtral layer's router and experts on the card, random from a
+    seed (std 1/sqrt(fan_in)), bf16 or int8 (``quantize_tensor``: per expert
+    and output channel), with their float32 values for the reference."""
+    from runbookai_tpu_torch.models.llama import get_config
+    from runbookai_tpu_torch.models.quant import quantize_tensor
+
+    cfg = get_config(MOE_MODEL)
+    d, f, e = cfg.dim, cfg.ffn_dim, cfg.n_experts
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(23)
+
+    def draw(shape, fan_in):
+        out = torch.empty(shape, dtype=torch.bfloat16, device=DEVICE)
+        for part in out.reshape(-1, *shape[-2:]):
+            part.copy_(torch.randn(part.shape, generator=gen, device=DEVICE) / fan_in ** 0.5)
+        return out
+
+    router = draw((d, e), d)
+    experts = [draw((e, d, f), d), draw((e, d, f), d), draw((e, f, d), f)]
+    if int8:
+        experts = [quantize_tensor(w) for w in experts]
+    return cfg, router, experts
+
+
+def moe_reference(torch, x, router, experts, top_k: int):
+    """Mixtral's MoE over ``x`` [N, D] in float32, token by token in the
+    form of ``tests/test_moe.py::_ref_moe`` (each token runs its top-k
+    experts, gates renormalised), batched by expert: every token's output
+    under expert e is computed and kept where e is among its top k. Returns
+    (output [N, D], probabilities sorted [N, E], their expert ids)."""
+    from runbookai_tpu_torch.models.quant import dequantize_tensor, is_quantized
+
+    xf = x.float()
+    probs = torch.softmax(xf @ router.float(), dim=-1)
+    sorted_p, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates = sorted_p[:, :top_k] / sorted_p[:, :top_k].sum(-1, keepdim=True)
+    out = torch.zeros_like(xf)
+    for e in range(router.shape[-1]):
+        w = [dequantize_tensor({k: v[e] for k, v in m.items()}) if is_quantized(m)
+             else m[e].float() for m in experts]
+        act = torch.nn.functional.silu(xf @ w[0]) * (xf @ w[1])
+        weight = (gates * (order[:, :top_k] == e)).sum(-1, keepdim=True)
+        out += weight * (act @ w[2])
+    return out, sorted_p, order
+
+
+def moe_bound(cfg, n: int, int8: bool) -> tuple[float, str]:
+    """The least time of one layer's MoE FFN over ``n`` tokens: the router
+    and every expert's weights read once (int8: a byte a weight and a float32
+    scale an output channel), the tokens read and the output written in bf16,
+    against the products the routed tokens need (top_k experts a token, not
+    the dropless queues' E)."""
+    d, f, e, k = cfg.dim, cfg.ffn_dim, cfg.n_experts, cfg.top_k_experts
+    w_bytes = 3 * e * d * f * (1 if int8 else 2) + (e * (2 * f + d) * 4 if int8 else 0)
+    n_bytes = w_bytes + d * e * 2 + 2 * n * d * 2
+    flops = 2 * n * (k * 3 * d * f + d * e)
+    return bound(n_bytes, flops, "bfloat16")
+
+
+def phase_moe_ffn(torch) -> dict:
+    """``ops/moe.py::moe_ffn`` at Mixtral's widths on the card, bf16 and
+    int8 experts, dropless: at N = 8 and 512 against the float32 reference
+    (routes tie-aware, outputs within MOE_TOL), then timed (CUDA events) at
+    N = 8, 512 and 2,048 beside its bound, with the transient bytes one call
+    allocates above its inputs (the dropless [E, N, F] activations; int8:
+    each widened [E, in, out] matrix)."""
+    from runbookai_tpu_torch.ops.moe import moe_ffn, route
+
+    free_device(torch)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60)
+    out: dict = {"phase": "moe_ffn", "model": MOE_MODEL, "tol": MOE_TOL,
+                 "route_tol": MOE_ROUTE_TOL, "card": smi.stdout.strip().splitlines()[0]}
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(7)
+    for kind in ("bfloat16", "int8"):
+        cfg, router, experts = moe_layer(torch, kind == "int8")
+        k = cfg.top_k_experts
+        res: dict = {}
+        for n in MOE_TIMED_TOKENS:
+            x = torch.randn((1, n, cfg.dim), generator=gen, device=DEVICE).to(torch.bfloat16)
+
+            def call(x=x):
+                return moe_ffn(x, router, *experts, k, cfg.capacity_factor)
+
+            case: dict = {}
+            if n in MOE_CHECK_TOKENS:
+                got = call()[0]
+                ref, sorted_p, order = moe_reference(torch, x[0], router, experts, k)
+                _, idx = route(x[0], router, k)
+                same = (idx.sort(-1).values == order[:, :k].sort(-1).values).all(-1)
+                near = (sorted_p[:, k - 1] - sorted_p[:, k]) <= MOE_ROUTE_TOL
+                if bool((~same & ~near).any()):
+                    raise AssertionError(f"moe_ffn {kind} N={n}: {int((~same).sum())} "
+                                         f"tokens routed apart from the f32 reference")
+                atol, rtol = MOE_TOL
+                diff = (got.float() - ref).abs()[same]
+                if not bool(got.isfinite().all()) or bool(
+                        (diff > atol + rtol * ref[same].abs()).any()):
+                    raise AssertionError(f"moe_ffn {kind} N={n}: max |err| "
+                                         f"{float(diff.max()):.3e} beyond {MOE_TOL}")
+                case.update(max_abs_err=float(diff.max()),
+                            ref_max_abs=float(ref.abs().max()),
+                            routed_apart=int((~same).sum()), near_ties=int(near.sum()))
+                del got, ref
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            call()
+            torch.cuda.synchronize()
+            case["transient_bytes"] = torch.cuda.max_memory_allocated() - base
+            case["ms"] = time_ms(call, iters=10 if n < 2048 else 5, warmup=2)
+            case["bound_ms"], case["bound_by"] = moe_bound(cfg, n, kind == "int8")
+            case["dropless_product_flops"] = 2 * cfg.n_experts * n * 3 * cfg.dim * cfg.ffn_dim
+            res[f"n{n}"] = case
+        out[kind] = res
+        out[f"clocks_{kind}"] = gpu_clocks()
+        out["max_abs_err"] = max(out.get("max_abs_err", 0.0),
+                                 *(c["max_abs_err"] for c in res.values() if "max_abs_err" in c))
+        del router, experts
+        free_device(torch)
+    return out
+
+
+def moe_client(torch, weights: str, layers: Optional[int] = None):
+    """``mixtral-8x7b-instruct`` from seed 0 on the card through the entry
+    points a user calls: bf16 weights and pool at ``layers`` of its 32
+    layers (``TorchCudaClient.build``), or the one-card deployment, int8
+    weights at all 32 layers over a bf16 pool (``TorchCudaClient.from_config``
+    on an ``llm`` block: the int8 tree is drawn on the card, the 93 GB bf16
+    tree never exists). Step graphs on; the serving engine's defaults."""
+    import dataclasses
+    from unittest import mock
+
+    from runbookai_tpu_torch.model.torch_cuda import TorchCudaClient
+    from runbookai_tpu_torch.models import llama
+    from runbookai_tpu_torch.utils.config import LLMConfig
+
+    if weights == "int8":
+        llm = LLMConfig(provider="jax-tpu", model=MOE_MODEL, dtype="int8",
+                        max_new_tokens=MOE_MAX_NEW)
+        return TorchCudaClient.from_config(llm, device=DEVICE)
+    cfg = llama.get_config(MOE_MODEL)
+    with mock.patch.dict(llama.CONFIGS, {MOE_MODEL: dataclasses.replace(cfg, n_layers=layers)}):
+        return TorchCudaClient.build(MOE_MODEL, device=DEVICE, dtype=torch.bfloat16, seed=0,
+                                     max_new_tokens=MOE_MAX_NEW)
+
+
+def graphs_off_twin(client):
+    """A client over ``client``'s params (none drawn again) with the step
+    graphs off and otherwise the same engine; ``client`` must be stopped."""
+    import dataclasses
+
+    from runbookai_tpu_torch.model.torch_cuda import TorchCudaClient
+
+    core = client.core
+    ecfg = dataclasses.replace(core.ecfg, step_graphs=False)
+    twin = TorchCudaClient._core(core.cfg, core.params, client.tokenizer, ecfg)
+    return TorchCudaClient(twin, client.tokenizer, max_new_tokens=client.max_new_tokens,
+                           chat_format=client.chat_format)
+
+
+def moe_serve(client, texts: list[str], max_new: int) -> dict:
+    """Serve ``texts`` at once (greedy, ``max_new`` tokens each) from a
+    fresh speculation backoff and stop the engine: every request must end
+    with 1..max_new in-vocabulary tokens. Returns the streams, walls and
+    TTFTs, and the engine's decode seconds a step over this run."""
+    client.max_new_tokens = max_new
+    fresh_backoff(client)
+    core = client.core
+    steps, decode_s = core.metrics["decode_steps"], core.metrics["decode_time_s"]
+    before = len(core.finished)
+    resps, wall = asyncio.run(_serve_and_stop(client, texts))
+    finished = list(core.finished)[before:]
+    done = [r.usage["completion_tokens"] for r in resps]
+    if client.engine.crash_count or len(finished) != len(texts) or any(
+            not 1 <= n <= max_new for n in done) or any(
+            r.finish_reason is None or r.finish_reason.value == "aborted" for r in finished):
+        raise AssertionError(f"moe: served {done} tokens, finishes "
+                             f"{[r.finish_reason for r in finished]}")
+    if any(not 0 <= t < core.cfg.vocab_size for r in finished for t in r.all_out_ids):
+        raise AssertionError("moe: a sampled id lies outside the vocabulary")
+    ids = [client._prompt_ids("", u, None) for u in texts]
+    n_steps = core.metrics["decode_steps"] - steps
+    return {"greedy_tokens": [streams_by_prompt(finished, p) for p in ids],
+            "prompt_tokens": [len(p) for p in ids], "completion_tokens": done,
+            "wall_s": wall, "tokens_per_s": sum(done) / wall,
+            "decode_s_per_step": (core.metrics["decode_time_s"] - decode_s) / max(1, n_steps),
+            "ttft_ms": [r.usage["ttft_ms"] for r in resps]}
+
+
+def check_moe_launches(weights: str, launched: dict) -> None:
+    if any(launched[k] == 0 for k in MOE_MUST[weights]):
+        raise AssertionError(f"moe {weights}: a kernel of the path never launched: {launched}")
+
+
+def phase_moe_bf16(torch) -> dict:
+    """bf16 Mixtral at MOE_BF16_LAYERS of its 32 layers (23.5 GB of
+    weights): eight greedy requests with the step graphs on, then the same
+    eight on a graphs-off twin over the same params: equal streams. K1 and
+    K2 counted over the graphs-on run; a decode forward's device ms from
+    the ("forward", 1) graph's replays."""
+    from runbookai_tpu_torch.models.quant import weight_bytes
+
+    free_device(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    client = moe_client(torch, "bfloat16", layers=MOE_BF16_LAYERS)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    texts = moe_prompts()
+    reset_counts()
+    on = moe_serve(client, texts, MOE_SHORT_NEW * 2)
+    launched = counts()
+    check_moe_launches("bfloat16", launched)
+    core = client.core
+    res = {"phase": "moe_bf16", "model": MOE_MODEL, "layers": core.cfg.n_layers,
+           "decode_forward_ms": forward_replay_ms(torch, core) if core._graphs else None,
+           "weight_bytes": weight_bytes(core.params), "build_s": build_s,
+           "graph_capture_s": core.metrics["graph_capture_s"],
+           "graph_buckets": len(core._graphs.buckets) if core._graphs else 0,
+           "graph_replays": core.metrics["graph_replays"], "launches": launched,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "max_memory_reserved": torch.cuda.max_memory_reserved(), **on}
+    twin = graphs_off_twin(client)
+    del client, core
+    free_device(torch)
+    off = moe_serve(twin, texts, MOE_SHORT_NEW * 2)
+    if twin.core.metrics["graph_replays"] or off["greedy_tokens"] != on["greedy_tokens"]:
+        raise AssertionError(f"moe bf16: graphs off gave other greedy tokens, first at "
+                             f"{first_divergence(off['greedy_tokens'], on['greedy_tokens'])}")
+    res["graphs_off"] = {k: off[k] for k in ("wall_s", "tokens_per_s", "decode_s_per_step",
+                                             "ttft_ms")}
+    res["same_tokens_graphs_off"] = True
+    return res
+
+
+def phase_moe_int8(torch) -> dict:
+    """The one-card deployment: int8 Mixtral at all 32 layers through
+    ``TorchCudaClient.from_config``. Its weight bytes must equal
+    ``plan_serving``'s; eight requests of MOE_MAX_NEW tokens with the step
+    graphs on (tokens a second, decode seconds a step on the host's clock,
+    a decode forward's device ms, TTFT, peak memory);
+    then eight other requests of MOE_SHORT_NEW tokens on the same engine and
+    on a graphs-off twin over the same params: equal streams."""
+    from runbookai_tpu_torch.engine.memory_plan import plan_serving
+    from runbookai_tpu_torch.models.quant import weight_bytes
+
+    free_device(torch)
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    client = moe_client(torch, "int8")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    core = client.core
+    w_bytes = weight_bytes(core.params)
+    plan = plan_serving(core.cfg, core.ecfg.max_seq_len, batch=core.ecfg.max_batch_slots,
+                        weights="int8", kv_dtype_bytes=core.kv.pool.kv_k.element_size(),
+                        hbm_bytes=torch.cuda.get_device_properties(0).total_memory)
+    if plan.weight_bytes_per_chip != w_bytes:
+        raise AssertionError(f"moe int8: plan_serving counts {plan.weight_bytes_per_chip} B "
+                             f"of weights, the tree holds {w_bytes}")
+    built = torch.cuda.memory_allocated()
+    reset_counts()
+    run = moe_serve(client, moe_prompts(), MOE_MAX_NEW)
+    launched = counts()
+    check_moe_launches("int8", launched)
+    res = {"phase": "moe_int8", "model": MOE_MODEL, "layers": core.cfg.n_layers,
+           "decode_forward_ms": forward_replay_ms(torch, core) if core._graphs else None,
+           "dtype": "int8", "kv_dtype": str(core.ecfg.kv_dtype).split(".")[1],
+           "weight_bytes": w_bytes, "plan_weight_bytes": plan.weight_bytes_per_chip,
+           "plan_pool_budget_bytes": plan.pool_budget_bytes, "fits": plan.fits,
+           "pool_bytes": core.kv.pool.nbytes(), "allocated_before": before,
+           "allocated_built": built - before, "build_s": build_s,
+           "graph_capture_s": core.metrics["graph_capture_s"],
+           "graph_buckets": len(core._graphs.buckets) if core._graphs else 0,
+           "launches": launched, **run,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "max_memory_reserved": torch.cuda.max_memory_reserved()}
+    res.pop("greedy_tokens")
+    short = moe_prompts(short=True)
+    on = moe_serve(client, short, MOE_SHORT_NEW)
+    res["graph_replays"] = core.metrics["graph_replays"]
+    twin = graphs_off_twin(client)
+    del client, core
+    free_device(torch)
+    off = moe_serve(twin, short, MOE_SHORT_NEW)
+    if twin.core.metrics["graph_replays"] or off["greedy_tokens"] != on["greedy_tokens"]:
+        raise AssertionError(f"moe int8: graphs off gave other greedy tokens, first at "
+                             f"{first_divergence(off['greedy_tokens'], on['greedy_tokens'])}")
+    res["short"] = {"graphs_on": {k: on[k] for k in ("wall_s", "decode_s_per_step")},
+                    "graphs_off": {k: off[k] for k in ("wall_s", "decode_s_per_step")},
+                    "same_tokens": True}
+    return res
+
+
+def moe_phases(torch) -> dict:
+    """Phase 23: moe_ffn at Mixtral's widths, bf16 Mixtral at 8 layers, the
+    int8 deployment at 32; returns the kernel launches of the two serving
+    runs with the graphs on (the counts set to 0 before each)."""
+    emit(phase_moe_ffn(torch))
+    bf16 = phase_moe_bf16(torch)
+    emit(bf16)
+    int8 = phase_moe_int8(torch)
+    emit(int8)
+    free_device(torch)
+    return {k: bf16["launches"].get(k, 0) + int8["launches"].get(k, 0)
+            for k in set(bf16["launches"]) | set(int8["launches"])}
+
+
 
 def main() -> int:
     try:
@@ -5459,6 +5824,9 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--lora"]:
         lora_draft_phases(torch)
+        return 0
+    if sys.argv[1:2] == ["--moe"]:
+        moe_phases(torch)
         return 0
     dec = phase_decode(pa, torch)
     emit(dec)
@@ -5580,6 +5948,9 @@ def main() -> int:
     # Multi-LoRA serving and draft-model speculation (phase 22), with K1's
     # and K2's launches read around it.
     lora_draft = lora_draft_phases(torch)
+    # Mixtral (phase 23): moe_ffn at its widths, bf16 at 8 layers and the
+    # int8 deployment at 32, each graphs on and off; K1, K2 and K5 counted.
+    moe = moe_phases(torch)
     decp = phase_decode_partial(pa, torch)
     emit(decp)
     chkp = phase_chunk_partial(pa, torch)
@@ -5622,6 +5993,7 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": dec_src,
                         "replaces": replaces, "launches": served["launches"][name],
                         "lora_draft_launches": lora_draft.get(name, 0),
+                        "moe_launches": moe.get(name, 0),
                         "max_abs_err": max(main_path["max_abs_err"],
                                            *(main_path[x]["max_abs_err"] for x in subs)),
                         "f32_cuda_core_max_abs_err": res["float32"]["max_abs_err"],
@@ -5636,6 +6008,7 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": mma_src,
                         "replaces": f"{pallas}:397", "launches": served["launches"][name],
                         "lora_draft_launches": lora_draft.get(name, 0),
+                        "moe_launches": moe.get(name, 0),
                         "max_abs_err": main_path["max_abs_err"],
                         "f32_cuda_core_max_abs_err": res["float32"]["max_abs_err"],
                         **{f: main_path[f] for f in fields + ("device_ms", "graph_ms",
@@ -5681,6 +6054,7 @@ def main() -> int:
                     "launches_int8": eng8["launches"]["paged_chunk_merge"],
                     "launches_fp8": eng_f8["launches"]["paged_chunk_merge"],
                     "lora_draft_launches": lora_draft.get("paged_chunk_merge", 0),
+                    "moe_launches": moe.get("paged_chunk_merge", 0),
                     "max_abs_err": max(merge["max_abs_err"],
                                        chk8["bfloat16"]["merge"]["max_abs_err"]),
                     **{f: merge[f] for f in fields + ("device_ms", "graph_ms", "cold_ms")},
@@ -5767,6 +6141,7 @@ def main() -> int:
                     "source": "runbookai_tpu_torch/csrc/qmm.cu",
                     "replaces": "runbookai_tpu/ops/qmm_pallas.py:83",
                     "launches": eng8["launches"]["qmm_int8"],
+                    "moe_launches": moe.get("qmm_int8", 0),
                     "max_abs_err": qmm["max_abs_err"],
                     "f32_cuda_core_max_abs_err": qmm["f32_cuda_core_max_abs_err"],
                     **qmm_rows["decode"], "verify": qmm_rows["verify"],

@@ -61,6 +61,27 @@ class ServingPlan:
         )
 
 
+def _moe_bytes(cfg, weights: str, tp: int, kv_shards: int, layer_matmul: int, wkv: int,
+               emb_head: int) -> float:
+    """A MoE model's weight bytes a device, norms aside, as the tree holds
+    them: the experts at 2 bytes a weight, or at int8 1 byte and a float32
+    scale a (layer, expert, output channel), split over ``model`` where E
+    divides by tp (``param_splits``); the router in the activation dtype on
+    every shard; attention as the dense count has it."""
+    L, D, E, F = cfg.n_layers, cfg.dim, cfg.n_experts, cfg.ffn_dim
+    ep = kv_shards if E % max(tp, 1) == 0 else 1
+    experts, router = L * E * 3 * D * F, L * D * E
+    attn = layer_matmul - experts - router
+    rest = router * 2 + emb_head * 2 / max(tp, 1)
+    if weights == "int8":
+        attn_scales = L * (cfg.n_heads * cfg.head_dim + 2 * cfg.n_kv_heads * cfg.head_dim
+                           + D)
+        return ((attn - wkv + attn_scales * 4) / max(tp, 1) + wkv / max(kv_shards, 1)
+                + (experts + L * E * (2 * F + D) * 4) / ep + rest)
+    return ((attn - wkv) * 2 / max(tp, 1) + wkv * 2 / max(kv_shards, 1)
+            + experts * 2 / ep + rest)
+
+
 def plan_serving(
     cfg,
     max_seq_len: int,
@@ -80,15 +101,24 @@ def plan_serving(
     "bf16". KV shards by the full tp via :func:`plan_kv_split` (heads as far
     as they divide, pages for the rest). ``kv_scale_bytes``: extra bytes per
     (token, kv head): 4 for the int8 KV pool's f32 absmax scales, 0 for
-    raw-dtype pools. The JAX package's host spill tier (``kv_spill_pages``)
-    is not ported (ROADMAP.md queue 1 item 9).
+    raw-dtype pools. Weights count every expert of a MoE model, as the
+    tree holds them (the JAX package counts only the active ones, and
+    offers their difference to the pool). The JAX package's host spill
+    tier (``kv_spill_pages``) is not ported (ROADMAP.md queue 1 item 9).
     """
     plan = plan_kv_split(cfg, tp)
 
-    layer_matmul = cfg.matmul_params - cfg.dim * cfg.vocab_size
+    # Every layer weight the tree holds: all experts of a MoE layer, where
+    # the JAX package's ``matmul_params`` counts only the top_k active ones.
+    norms = (cfg.n_layers * 2 + 1) * cfg.dim
+    layer_matmul = (cfg.total_params - norms
+                    - cfg.vocab_size * cfg.dim * (1 if cfg.tie_embeddings else 2))
     wkv = cfg.n_layers * 2 * cfg.dim * cfg.n_kv_heads * cfg.head_dim
     emb_head = 2 * cfg.vocab_size * cfg.dim  # embed + lm head (or tied x2)
-    if weights == "int8":
+    if cfg.n_experts:
+        per_chip = _moe_bytes(cfg, weights, tp, plan.kv_shards, layer_matmul, wkv,
+                              emb_head)
+    elif weights == "int8":
         # wk/wv shard kv_shards-way only; everything else full-tp.
         per_chip = ((layer_matmul - wkv) / max(tp, 1)
                     + wkv / max(plan.kv_shards, 1)
@@ -98,7 +128,7 @@ def plan_serving(
         per_chip = ((layer_matmul - wkv) * 2 / max(tp, 1)
                     + wkv * 2 / max(plan.kv_shards, 1)
                     + emb_head * 2 / max(tp, 1))
-    per_chip += (cfg.n_layers * 2 + 1) * cfg.dim * 4  # norms, replicated
+    per_chip += norms * 4  # replicated
 
     kv_per_token = (cfg.n_layers * 2
                     * (cfg.n_kv_heads / max(plan.kv_shards, 1))

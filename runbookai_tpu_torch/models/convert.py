@@ -5,7 +5,8 @@ Both packages keep the same stacked pytree (``embed``, ``layers`` with
 conversion is one tensor per leaf; it lets the tests feed both packages the
 same weights. The bge encoder's params (``models/bge.py``) share their layout
 with the JAX package's too. An int8 ``{"q": int8, "s": float32}`` layer leaf converts to a
-dict of the same two tensors, in their own types. A draft model's params are
+dict of the same two tensors, in their own types; MoE expert leaves
+``[L, E, in, out]`` (plain or int8) and the router carry across as they are. A draft model's params are
 any Llama config's. LoRA adapters carry across too: a stacked ``"lora"``
 tree (``{leaf: {"A", "B"}}``) inside the params, and a whole JAX
 ``LoraRegistry`` (its names and float32 host arrays,

@@ -40,6 +40,9 @@ _LAYER_MAP = {
     "mlp_norm": ("model.layers.{i}.post_attention_layernorm.weight", False),
 }
 
+# Mixtral's expert leaves -> the HF expert part that replaces the dense MLP.
+_MOE_MAP = {"w_gate": "w1", "w_up": "w3", "w_down": "w2"}
+
 # Qwen2-only bias leaves (1-D per layer, no transpose).
 _BIAS_MAP = {
     "bq": "model.layers.{i}.self_attn.q_proj.bias",
@@ -136,27 +139,43 @@ def load_params(model_dir: str | Path, cfg: Optional[LlamaConfig] = None,
     ``device``. Norm weights load as float32, everything else as
     ``dtype``. ``quantize_int8`` quantizes the seven stacked layer matrices
     on the host (``quantize_array_np``) into ``{"q": int8, "s": float32}``
-    leaves, so their full-precision copies never reach the device."""
+    leaves, so their full-precision copies never reach the device. Mixtral
+    directories load their experts as ``[L, E, in, out]`` leaves (int8 per
+    expert and output channel) and the router as ``[L, D, E]``."""
     model_dir = Path(model_dir)
     cfg = cfg or config_from_hf(model_dir)
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: mixture-of-experts models are not ported yet")
     raw = _read_dir(model_dir)
 
     def put(x: torch.Tensor, leaf_dtype: torch.dtype) -> torch.Tensor:
         return x.to(device=device, dtype=leaf_dtype).contiguous()
 
     layers: dict[str, torch.Tensor] = {}
-    for leaf, (tmpl, transpose) in _LAYER_MAP.items():
-        mats = [raw[tmpl.format(i=i)] for i in range(cfg.n_layers)]
-        stacked = torch.stack([m.T if transpose else m for m in mats])
+
+    def store(leaf: str, stacked: torch.Tensor) -> None:
         if quantize_int8 and leaf in LAYER_QUANT_KEYS:
             q, s = quantize_array_np(stacked.float().numpy())
             layers[leaf] = {"q": put(torch.from_numpy(q), torch.int8),
                             "s": put(torch.from_numpy(s), torch.float32)}
-            continue
+            return
         layers[leaf] = put(stacked, torch.float32 if leaf.endswith("norm") else dtype)
+
+    for leaf, (tmpl, transpose) in _LAYER_MAP.items():
+        if cfg.n_experts and leaf in _MOE_MAP:
+            continue
+        mats = [raw[tmpl.format(i=i)] for i in range(cfg.n_layers)]
+        store(leaf, torch.stack([m.T if transpose else m for m in mats]))
+    if cfg.n_experts:
+        # Mixtral: each layer's experts stacked on an E axis (w1 = gate, w3 =
+        # up, w2 = down, all [out, in], transposed); the router, never
+        # quantized, in the activation dtype.
+        for leaf, part in _MOE_MAP.items():
+            tmpl = "model.layers.{i}.block_sparse_moe.experts.{e}." + part + ".weight"
+            store(leaf, torch.stack([
+                torch.stack([raw[tmpl.format(i=i, e=e)].T for e in range(cfg.n_experts)])
+                for i in range(cfg.n_layers)]))
+        layers["router"] = put(torch.stack(
+            [raw[f"model.layers.{i}.block_sparse_moe.gate.weight"].T
+             for i in range(cfg.n_layers)]), dtype)
     if cfg.qkv_bias:
         for leaf, tmpl in _BIAS_MAP.items():
             layers[leaf] = put(torch.stack(

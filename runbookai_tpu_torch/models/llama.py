@@ -17,6 +17,9 @@ The counterpart of ``runbookai_tpu/models/llama.py`` on one GPU:
   matrices may be ``{"q", "s"}`` leaves, multiplied by :func:`qmm`. The KV
   pools may be int8 ``(values, scales)`` tuples
   (:mod:`runbookai_tpu_torch.ops.attention`).
+- Mixtral's routed experts (:mod:`runbookai_tpu_torch.ops.moe`): with
+  ``n_experts`` the FFN leaves are ``[L, E, in, out]`` and a router
+  ``[L, D, E]`` (never quantized) picks each token's top k.
 - Tensor parallelism: with ``mesh=`` (:mod:`runbookai_tpu_torch.parallel`)
   the params are one dict per shard (``shard_params``) and the pools one
   per shard; the forward loops over the shards inside the layer loop and
@@ -35,6 +38,7 @@ import torch
 from runbookai_tpu_torch.models.lora import layer_lora, with_lora
 from runbookai_tpu_torch.models.quant import is_quantized
 from runbookai_tpu_torch.ops.attention import write_kv_pages_batch
+from runbookai_tpu_torch.ops.moe import moe_ffn
 from runbookai_tpu_torch.ops.paged_attention import (
     paged_chunk_attention,
     paged_chunk_attention_tp,
@@ -87,7 +91,6 @@ class LlamaConfig:
     family: str = "llama"
     # Mixture-of-Experts (Mixtral): 0 = dense FFN. When > 0 the FFN leaves
     # gain a leading expert axis ([L, E, D, F]) plus a router [L, D, E].
-    # The port does not serve MoE yet (init and forward refuse it).
     n_experts: int = 0
     top_k_experts: int = 2
     # Per-expert queue headroom. 0 (default) = dropless: capacity N, exact
@@ -246,24 +249,26 @@ def get_config(name: str) -> LlamaConfig:
 
 
 def _layer_shapes(cfg: LlamaConfig) -> dict[str, tuple[tuple[int, ...], int]]:
-    """The stacked dense layer matrices as ``name -> (shape, fan_in)``."""
+    """The stacked layer matrices as ``name -> (shape, fan_in)``. MoE
+    configs put a leading expert axis on the FFN leaves and add the router
+    ``[L, D, E]``, which stays in the dense dtype under the int8 init."""
     L, D, KV, F = cfg.n_layers, cfg.dim, cfg.n_kv_heads, cfg.ffn_dim
     H, hd = cfg.n_heads, cfg.head_dim
-    return {
+    shapes = {
         "wq": ((L, D, H * hd), D),
         "wk": ((L, D, KV * hd), D),
         "wv": ((L, D, KV * hd), D),
         "wo": ((L, H * hd, D), H * hd),
-        "w_gate": ((L, D, F), D),
-        "w_up": ((L, D, F), D),
-        "w_down": ((L, F, D), F),
     }
-
-
-def _require_dense(cfg: LlamaConfig) -> None:
+    experts = (cfg.n_experts,) if cfg.n_experts else ()
+    shapes.update({
+        "w_gate": ((L, *experts, D, F), D),
+        "w_up": ((L, *experts, D, F), D),
+        "w_down": ((L, *experts, F, D), F),
+    })
     if cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: mixture-of-experts models are not ported yet")
+        shapes["router"] = ((L, D, cfg.n_experts), D)
+    return shapes
 
 
 # The largest float32 draw of a 2-D leaf (64 MiB), below one layer matrix of
@@ -279,13 +284,13 @@ def _build_params(cfg: LlamaConfig, dtype: torch.dtype, device,
     and head, is drawn in float32 and cast into the ``dtype`` tensor, so no
     whole leaf, let alone a full-width model, exists in float32 or on the
     host. ``layer_init(shape, fan_in)``, when given, makes the seven layer
-    matrices instead."""
-    _require_dense(cfg)
+    matrices instead (the router stays dense, as in the JAX package)."""
     device = torch.device(device)
 
     def dense(shape, fan_in):
         out = torch.empty(shape, dtype=dtype, device=device)
-        parts = out if len(shape) == 3 else out.split(max(1, _DRAW_ELEMS // shape[-1]))
+        parts = (out.flatten(0, -3) if len(shape) >= 3
+                 else out.split(max(1, _DRAW_ELEMS // shape[-1])))
         for part in parts:
             part.copy_(torch.randn(part.shape, generator=generator,
                                    device=device) / math.sqrt(fan_in))
@@ -293,7 +298,7 @@ def _build_params(cfg: LlamaConfig, dtype: torch.dtype, device,
 
     L, D = cfg.n_layers, cfg.dim
     layers: dict[str, Any] = {
-        name: (layer_init or dense)(shape, fan_in)
+        name: (dense if name == "router" else layer_init or dense)(shape, fan_in)
         for name, (shape, fan_in) in _layer_shapes(cfg).items()}
     layers["attn_norm"] = torch.ones((L, D), dtype=torch.float32, device=device)
     layers["mlp_norm"] = torch.ones((L, D), dtype=torch.float32, device=device)
@@ -328,11 +333,12 @@ def init_params_quantized(cfg: LlamaConfig, dtype: torch.dtype = torch.bfloat16,
     [-127, 127] (std 127/sqrt(3)) with the per-channel scale
     ``sqrt(3) / (127 sqrt(fan_in))``, which gives the dequantized weights the
     std ``1/sqrt(fan_in)`` of :func:`init_params`. Leaves are ``{"q": int8,
-    "s": float32 [L, 1, out]}``; the rest is as :func:`init_params`."""
+    "s": float32 [L, 1, out]}`` (MoE experts: ``[L, E, 1, out]``); the rest,
+    the router included, is as :func:`init_params`."""
 
     def qdense(shape, fan_in):
         q = torch.empty(shape, dtype=torch.int8, device=device)
-        for part in q:
+        for part in q.flatten(0, -3):
             part.random_(-127, 128, generator=generator)
         scale = 3 ** 0.5 / (127.0 * fan_in ** 0.5)
         s = torch.full(shape[:-2] + (1, shape[-1]), scale, dtype=torch.float32,
@@ -346,17 +352,19 @@ def qmm(x: torch.Tensor, w: Any) -> torch.Tensor:
     """``x @ w`` for a plain or an int8 ``{"q", "s"}`` weight.
 
     The route is chosen by shape, as the JAX package's ``qmm(impl="pallas")``
-    chooses it: an eligible ``[M, K] @ [K, N]`` (decode and verify) goes to
-    the int8 kernel :func:`qmm_int8`, any other quantized product (prefill)
-    to ``(x @ q) * s`` in x's dtype through ``torch.matmul``, which widens
-    the whole int8 matrix first."""
+    chooses it: an eligible 2-D ``[M, K] @ [K, N]`` (decode and verify) goes
+    to the int8 kernel :func:`qmm_int8`; any other quantized product
+    (prefill, and the MoE experts' batched ``[E, C, K] @ [E, K, N]`` with
+    scales ``[E, 1, N]``) to ``(x @ q) * s`` in x's dtype through
+    ``torch.matmul``, which widens the whole int8 matrix first."""
     if not is_quantized(w):
         return x @ w
     q, s = w["q"], w["s"]
-    k_dim, n = q.shape
-    lead = x.shape[:-1]
-    if qmm_eligible(math.prod(lead), k_dim, n):
-        return qmm_int8(x.reshape(-1, k_dim), q, s.reshape(1, n)).reshape(*lead, n)
+    if q.dim() == 2:
+        k_dim, n = q.shape
+        lead = x.shape[:-1]
+        if qmm_eligible(math.prod(lead), k_dim, n):
+            return qmm_int8(x.reshape(-1, k_dim), q, s.reshape(1, n)).reshape(*lead, n)
     return (x @ q.to(x.dtype)) * s.to(x.dtype)
 
 
@@ -367,9 +375,14 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     return (norm * weight).to(x.dtype)
 
 
-def ffn_block(y: torch.Tensor, lp: dict, cfg: LlamaConfig) -> torch.Tensor:
-    """Dense SwiGLU FFN; the residual is added by the caller."""
-    _require_dense(cfg)
+def ffn_block(y: torch.Tensor, lp: dict, cfg: LlamaConfig, first_expert: int = 0
+              ) -> torch.Tensor:
+    """SwiGLU FFN, dense or Mixtral's routed experts (:func:`moe_ffn`, over
+    the experts ``lp`` holds from ``first_expert`` on); the residual is
+    added by the caller."""
+    if cfg.n_experts:
+        return moe_ffn(y, lp["router"], lp["w_gate"], lp["w_up"], lp["w_down"],
+                       cfg.top_k_experts, cfg.capacity_factor, first=first_expert)
     return qmm(torch.nn.functional.silu(qmm(y, lp["w_gate"])) * qmm(y, lp["w_up"]),
                lp["w_down"])
 
@@ -452,7 +465,6 @@ def forward_hidden(
         return _forward_hidden_sharded(params, cfg, tokens, positions, kv_k, kv_v,
                                        page_tables, ctx_lens, page_size, mesh,
                                        adapter_ids if lora is not None else None)
-    _require_dense(cfg)
     b, t = tokens.shape
     hd, n_kv, n_q = cfg.head_dim, cfg.n_kv_heads, cfg.n_heads
     h = params["embed"][tokens]
@@ -615,6 +627,20 @@ def _lm_head_sharded(shards: list[Params], cfg: LlamaConfig, hidden: torch.Tenso
     return all_gather(parts, dim=-1, device=home)
 
 
+def _ffn_ranks(cfg: LlamaConfig, mesh: Mesh, split) -> tuple[list[int], list[int]]:
+    """The ranks whose FFN parts the sum after the FFN adds, and the first
+    expert each holds: every rank where the FFN splits over the combined
+    axis, one rank a model group where the experts split over ``model``
+    (the page shards of a group hold the same experts), else rank 0."""
+    if split is None:
+        return [0], [0]
+    if split[1] == "tp":
+        return list(range(mesh.tp)), [0] * mesh.tp
+    groups = range(mesh.model)
+    per = cfg.n_experts // mesh.model
+    return [mesh.rank(m, 0) for m in groups], [m * per for m in groups]
+
+
 def _forward_hidden_sharded(shards: list[Params], cfg: LlamaConfig,
                             tokens: torch.Tensor, positions: torch.Tensor,
                             kv_k: list, kv_v: list, page_tables: torch.Tensor,
@@ -628,14 +654,17 @@ def _forward_hidden_sharded(shards: list[Params], cfg: LlamaConfig,
     collectives that XLA inserts from the shardings: the vocab-split
     embedding's sum, the sums of the row-parallel partial products after
     ``wo`` and ``w_down``, and the merge of the page shards' attention
-    partials. Routing follows the JAX forward: page-split attention when
+    partials. MoE layers split the experts over ``model`` where
+    ``param_splits`` does (expert parallelism): every shard routes all
+    tokens with the whole router, one shard a model group runs the queues of
+    its own experts, and the sum after the FFN adds their parts once;
+    replicated experts run on rank 0 alone. Routing follows the JAX forward: page-split attention when
     ``seq`` > 1 (the partial kernels), else the decode and chunk kernels per
     head shard. With adapters (each shard's ``"lora"``, cut by
     ``shard_lora``), a shard adds its own columns of the wq/wk/wv deltas,
     and its rows of wo's A give it a partial of the wo delta that the sum
     after ``wo`` adds exactly once. Returns hidden [B, T, D] on rank 0's
     device."""
-    _require_dense(cfg)
     check_mesh(cfg, mesh)
     splits = param_splits(cfg, mesh)
     b, t = tokens.shape
@@ -652,7 +681,7 @@ def _forward_hidden_sharded(shards: list[Params], cfg: LlamaConfig,
         dests = [kv_split.split_destinations(
             pos[r], tables[r], page_size, mesh.coords(r)[1], kv_k[r].shape[1])
             for r in range(tp)]
-    ffn_ranks = range(tp) if splits["layers.w_down"] is not None else range(1)
+    ffn_ranks, firsts = _ffn_ranks(cfg, mesh, splits["layers.w_down"])
     h = _embed_sharded(shards, cfg, tok, mesh)
     for i in range(cfg.n_layers):
         lps = [{name: _layer(w, i) for name, w in shard["layers"].items()}
@@ -701,6 +730,7 @@ def _forward_hidden_sharded(shards: list[Params], cfg: LlamaConfig,
         h = map_replicated(torch.add, h, o)
         y = map_replicated(lambda a: rms_norm(a, lps[0]["mlp_norm"].to(a.device),
                                               cfg.norm_eps), h)
-        f = all_reduce_sum([ffn_block(y[r], lps[r], cfg) for r in ffn_ranks], mesh)
+        f = all_reduce_sum([ffn_block(y[r], lps[r], cfg, first)
+                            for r, first in zip(ffn_ranks, firsts)], mesh)
         h = map_replicated(torch.add, h, f)
     return h[0]

@@ -9,8 +9,10 @@ dequantize-then-matmul because the scale is constant along the contraction:
 ``sum_i x_i q_io s_o == s_o sum_i x_i q_io``.
 
 Quantized leaves are plain dicts ``{"q": int8 [L, in, out], "s": float32
-[L, 1, out]}``, the JAX package's layout, so parameters convert one to one.
-Norms, embeddings and the LM head stay in the activation dtype.
+[L, 1, out]}``, the JAX package's layout, so parameters convert one to one;
+MoE experts ``[L, E, in, out]`` take one scale a (layer, expert, output
+channel), ``[L, E, 1, out]``. Norms, embeddings, the LM head and a MoE
+router stay in the activation dtype.
 """
 
 from __future__ import annotations

@@ -10,6 +10,9 @@ per shard, holding the slices that ``param_shardings`` gives that device:
 - ``wo``, ``w_down``: row-split over the combined axis;
 - ``wk``, ``wv`` (and ``bk``, ``bv``): column-split over ``model`` only,
   since every page shard of a kv group needs that group's K/V projections;
+- MoE experts ``[L, E, in, out]``: the expert axis over ``model`` when E
+  divides by the full tp (expert parallelism), else replicated; the router
+  replicated;
 - ``embed`` and ``lm_head``: split over the vocabulary;
 - norms replicated; a leaf whose split axis does not divide by its shard
   count is replicated, as the JAX rules replicate it.
@@ -51,6 +54,14 @@ def param_splits(cfg, mesh: Mesh) -> dict[str, Split]:
         "layers.attn_norm": None,
         "layers.mlp_norm": None,
     }
+    if cfg.n_experts:
+        # Expert parallelism: the FFN leaves [L, E, in, out] split their
+        # expert axis over ``model`` when E divides by the full tp, as the
+        # JAX rule does (else every shard holds every expert); the router
+        # replicates.
+        ep = (1, "model") if cfg.n_experts % tp == 0 else None
+        splits.update({"layers.w_gate": ep, "layers.w_up": ep, "layers.w_down": ep,
+                       "layers.router": None})
     if cfg.qkv_bias:
         splits["layers.bq"] = (1, "tp") if heads_ok else None
         splits["layers.bk"] = (1, "model") if kv_ok else None

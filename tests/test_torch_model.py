@@ -128,7 +128,7 @@ def test_forward_matches_jax_pallas(name):
 
 
 @pytest.mark.parametrize("name", ["hf-tiny-untied", "hf-tiny-tied",
-                                  "hf-tiny-qwen2", "hf-tiny-rope31"])
+                                  "hf-tiny-qwen2", "hf-tiny-rope31", "hf-tiny-mixtral"])
 def test_loader_forward_matches_hf_goldens(name):
     d = FIXTURES / name
     cfg, params = load_params(d, config_from_hf(d, name=name), dtype=torch.float32,
@@ -143,12 +143,6 @@ def test_loader_forward_matches_hf_goldens(name):
         torch.zeros(shape), torch.zeros(shape), torch.from_numpy(tables),
         torch.full((b,), t, dtype=torch.int32), PS)
     np.testing.assert_allclose(logits.numpy(), want, atol=2e-4, rtol=2e-3)
-
-
-def test_loader_refuses_moe():
-    d = FIXTURES / "hf-tiny-mixtral"
-    with pytest.raises(NotImplementedError):
-        load_params(d, config_from_hf(d), dtype=torch.float32, device="cpu")
 
 
 def test_converter_carries_quantized_leaves():
