@@ -193,7 +193,7 @@ phases (12 and 16's page split and tp=8) run at 4 of the 32 layers
 18. (after phase 15) ``runbook investigate`` and ``runbook ask`` through
    the port's CLI, in this process (``runbookai_tpu_torch.__main__.main``
    with ``--yes`` and a ``config.yaml`` written to a temporary directory):
-   ``llm.provider: jax-tpu``, llama3-8b-instruct at full width cut to 8 of
+   ``llm.provider: jax-tpu``, llama3-8b-instruct at full width cut to 4 of
    its 32 layers (``AGENT_LAYERS``), bf16, random weights from seed 0,
    byte tokenizer, phase 15's schema limits, 512 new tokens a call (256
    for ``ask``), the e2e test's budgets (2 hypotheses, depth 1, 2
@@ -343,6 +343,39 @@ phases (12 and 16's page split and tp=8) run at 4 of the 32 layers
    Each serving run must launch K1 and K2 (int8 also K5); the kernels'
    line gives their launches with the graphs on (``moe_launches``).
    ``--moe`` runs the build and this phase alone.
+24. Fine-tuning, weight checkpoints and ``chat --raw`` (after phase 23).
+   ``train_attention``: the training forward's dense causal attention
+   (``models/llama.py::dense_causal_attention``, plain torch ops) forward
+   and forward + backward at the two fine-tunes' shapes (4 x 255 tokens;
+   the 8B's 32/8 heads at head_dim 128 in bf16, the 1B's 32/8 at 64 in
+   float32; CUDA events) beside their bounds and
+   ``scaled_dot_product_attention``'s times. ``train_lora``:
+   llama3-8b-instruct at full width and all 32 layers, bf16, served through
+   ``TorchCudaClient.build`` with a registry (rank 8 over wq and wv, one
+   random PEFT adapter) and speculation off; a fresh all-zero adapter is
+   registered and ``train/lora_trainer.py::LoraTrainer`` tunes it for
+   TRAIN_LORA_STEPS steps on one seeded 4 x 256 batch: the loss must fall
+   and no kernel wrapper may launch during the steps (K5 included: the
+   training forward widens int8 and has no K5). ``publish`` and the live
+   engine's ``refresh_lora`` then serve it (graphs on): each prompt's greedy
+   stream must differ from the base model's and equal the stream of a fresh
+   engine over the same base whose registry loaded ``export_peft``'s
+   directory, with the graphs on and off; the other adapter's row stays as
+   it was. ``train_full``: ``train/trainer.py::Trainer`` on
+   llama3.2-1b-instruct at full width (16 layers), float32, AdamW, for
+   TRAIN_FULL_STEPS steps on one seeded 4 x 256 batch (the loss must fall);
+   ``save_checkpoint``, ``weights info`` (the config as JSON) and
+   ``load_or_init`` from the directory: every restored tensor bit-equal to
+   the trained one; the restored model through ``TorchCudaClient.build
+   (model_path=...)`` and the trained params in memory must serve equal
+   greedy streams (the float32 kernels). Each reports ms a step, trained
+   tokens a second, peak memory and its last step's device time (profiler:
+   matmuls and the rest) and idle share; ``train_full`` also the checkpoint's
+   bytes and its write and read seconds. ``train_chat``: ``chat --raw`` on
+   the 8B at CUT_LAYERS layers with two turns piped into standard input:
+   two requests, the second's prompt carrying the first turn. The serving
+   runs must launch K1 and K2; the kernels' line gives their launches
+   (``train_launches``). ``--train`` runs the build and this phase alone.
 
 Then it prints the kernels' line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -3507,9 +3540,11 @@ AGENT_NOW = 1_790_000_000.0  # time.time() in the agent phases (fixture stamps)
 # Depth of the agent phases' 8B. At the schemas' default limits random
 # weights run each string to its 512-byte cap, and the agent decodes one
 # request at a time, so a document takes hundreds to thousands of tokens;
-# the phases serve under phase 15's limits (GUIDED_LIMITS) at a quarter of
-# the depth, graphs on and off, in about a minute.
-AGENT_LAYERS = 8
+# the phases serve under phase 15's limits (GUIDED_LIMITS) at CUT_LAYERS,
+# graphs on and off. At 8 layers, with phase 24 added, the whole script
+# took 955.4 s of phases on an H100 at 700 W, past the 950 s it aims for;
+# phases 18 and 19's agent runs took 147 s of it.
+AGENT_LAYERS = CUT_LAYERS
 AGENT_MAX_NEW = 512  # every guided call's budget (llm.max_new_tokens), as phase 15's
 # The e2e test's budgets (tests/test_investigate_e2e_engine.py).
 AGENT_BUDGETS = {"max_hypotheses": 2, "max_hypothesis_depth": 1,
@@ -5129,13 +5164,13 @@ def write_peft(path: Path, seed: int, layers: int) -> Path:
     return path
 
 
-def run_in_thread(server, adapters, prompt_ids: list, max_new: int) -> list:
+def greedy_in_thread(client, adapters, prompt_ids: list, max_new: int) -> list:
     """One request per entry of ``adapters`` (None: the base model), all
     submitted together and stepped to the end in this thread under the step
     lock, from a fresh speculation backoff; returns the requests."""
     from runbookai_tpu_torch.engine.request import EngineRequest, SamplingParams
 
-    client, core = server.client, server.client.core
+    core = client.core
     fresh_backoff(client)
     with client.engine._lock:
         reqs = [EngineRequest(prompt_ids=list(prompt_ids),
@@ -5145,7 +5180,7 @@ def run_in_thread(server, adapters, prompt_ids: list, max_new: int) -> list:
             core.submit(r)
         core.run_until_idle()
     if any(r.finish_reason is None or r.finish_reason.value == "aborted" for r in reqs):
-        raise AssertionError(f"lora_draft: requests aborted: "
+        raise AssertionError(f"requests aborted: "
                              f"{[(r.finish_reason, r.num_generated) for r in reqs]}")
     return reqs
 
@@ -5219,10 +5254,11 @@ def phase_lora(torch, tmp: Path) -> dict:
             raise AssertionError(f"lora: registry {core.lora and core.lora.names}, graphs "
                                  f"{core._graphs is not None}")
         dispatch_rows = decode_rows(core)
-        batch = [r.all_out_ids for r in run_in_thread(server, rows, ids, LORA_MAX_NEW)]
+        batch = [r.all_out_ids for r in greedy_in_thread(server.client, rows, ids, LORA_MAX_NEW)]
         out["decode_ms_with_adapters"] = forward_replay_ms(torch, core)
         out["max_rows_per_decode_forward"] = max(n for n, _ in dispatch_rows)
-        solo = [run_in_thread(server, [a], ids, LORA_MAX_NEW)[0].all_out_ids for a in rows]
+        solo = [greedy_in_thread(server.client, [a], ids, LORA_MAX_NEW)[0].all_out_ids
+                for a in rows]
         if batch != solo:
             raise AssertionError(f"lora: batch rows differ from their solo streams at "
                                  f"{first_divergence(batch, solo)}")
@@ -5247,8 +5283,8 @@ def phase_lora(torch, tmp: Path) -> dict:
         if status != 200 or json.loads(body)["model"] != LORA_HOT or len(hot_req) != 1 \
                 or hot_req[0].adapter_idx != len(rows):
             raise AssertionError(f"lora: the hot adapter's request: {status} {body[:300]}")
-        hot_solo = run_in_thread(server, [LORA_HOT], ids, LORA_MAX_NEW)[0].all_out_ids
-        after = [r.all_out_ids for r in run_in_thread(server, (*rows, LORA_HOT), ids,
+        hot_solo = greedy_in_thread(server.client, [LORA_HOT], ids, LORA_MAX_NEW)[0].all_out_ids
+        after = [r.all_out_ids for r in greedy_in_thread(server.client, (*rows, LORA_HOT), ids,
                                                       LORA_MAX_NEW)]
         if after != solo + [hot_solo] or hot_solo in solo:
             raise AssertionError(f"lora: after the hot load the batch parts from the solo "
@@ -5266,7 +5302,7 @@ def phase_lora(torch, tmp: Path) -> dict:
     server, _, _, _, _ = build_serving(torch, graphs=False, layers=LORA_LAYERS, llm=llm,
                                        engine=LORA_ENGINE)
     try:
-        off = [r.all_out_ids for r in run_in_thread(server, rows, ids, LORA_MAX_NEW)]
+        off = [r.all_out_ids for r in greedy_in_thread(server.client, rows, ids, LORA_MAX_NEW)]
         off_replays = server.client.core.metrics["graph_replays"]
     finally:
         server.shutdown()
@@ -5277,7 +5313,7 @@ def phase_lora(torch, tmp: Path) -> dict:
     free_device(torch)
     server, _, _, _, _ = build_serving(torch, layers=LORA_LAYERS, engine=LORA_ENGINE)
     try:
-        plain = [r.all_out_ids for r in run_in_thread(server, [None] * len(rows), ids,
+        plain = [r.all_out_ids for r in greedy_in_thread(server.client, [None] * len(rows), ids,
                                                       LORA_MAX_NEW)]
         out["decode_ms_without_registry"] = forward_replay_ms(torch, server.client.core)
     finally:
@@ -5774,6 +5810,354 @@ def moe_phases(torch) -> dict:
 
 
 
+# ------------------------------------ phase 24: fine-tuning and checkpoints
+TRAIN_BATCH, TRAIN_SEQ = 4, 256  # one seeded batch of token ids in [1, vocab)
+TRAIN_LORA_STEPS = 20
+TRAIN_LORA_LR = 1e-3
+TRAIN_ADAPTER = "sre-tuned"  # registered all zero, then tuned
+TRAIN_FULL_MODEL = "llama3.2-1b-instruct"  # dim 2048, 16 layers, 32/8 heads, tied
+TRAIN_FULL_STEPS = 10
+TRAIN_FULL_LR = 1e-4
+TRAIN_PROMPTS = ("why 5xx on api?", "restart the api")
+TRAIN_MAX_NEW = 32
+TRAIN_CHAT_TURNS = ("why is checkout slow?", "and the database?")
+TRAIN_MUST = ("paged_decode_attention", "paged_chunk_attention")
+
+
+def train_tokens(torch, vocab: int):
+    gen = torch.Generator().manual_seed(0)
+    return torch.randint(1, vocab, (TRAIN_BATCH, TRAIN_SEQ), generator=gen)
+
+
+# Substrings of the kernel names a training step's matmuls run under.
+MATMUL_KERNELS = ("gemm", "cutlass", "xmma", "nvjet")
+
+
+def train_steps(torch, trainer, tokens, steps: int) -> dict:
+    """``steps`` train steps of ``trainer`` on ``tokens``, each timed to its
+    end (its loss is read on the host), the last under torch.profiler (its
+    device time split into matmuls and the rest, against its wall, and the
+    optimizer's share of it: the kernels under ``Adam.step``'s
+    ``Optimizer.step#...`` range), with the peak memory over them and the
+    kernel counts read around them: no wrapper may launch, and the loss
+    must fall."""
+    import math
+    import statistics
+
+    from torch.profiler import ProfilerActivity, profile
+
+    free_device(torch)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, walls = [], []
+    for _ in range(steps - 1):
+        t0 = time.perf_counter()
+        losses.append(trainer.train_step(tokens))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        losses.append(trainer.train_step(tokens))
+        torch.cuda.synchronize()
+        profiled_wall = time.perf_counter() - t0
+    launched = {k: n for k, n in counts().items() if n}
+    if launched:
+        raise AssertionError(f"train: kernel wrappers launched in the steps: {launched}")
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"train: the loss did not fall: {losses}")
+    busy = {"matmul": 0.0, "other": 0.0}
+    optimizer_ms = 0.0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation:
+            kind = "matmul" if any(m in e.name.lower() for m in MATMUL_KERNELS) else "other"
+            busy[kind] += e.time_range.elapsed_us() / 1e3
+        elif e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith(
+                "Optimizer.step#"):
+            optimizer_ms += e.device_time_total / 1e3
+    if sum(busy.values()) and not optimizer_ms:
+        raise AssertionError("train: the profile holds no optimizer kernel")
+    step_s = statistics.median(walls[1:])
+    return {"steps": steps, "batch": [TRAIN_BATCH, TRAIN_SEQ], "losses": losses,
+            "first_step_s": walls[0], "ms_per_step": step_s * 1e3,
+            "trained_tokens_per_s": TRAIN_BATCH * (TRAIN_SEQ - 1) / step_s,
+            "profiled_step": {"wall_ms": profiled_wall * 1e3,
+                              "device_ms": busy, "optimizer_device_ms": optimizer_ms,
+                              "idle_share": 1 - sum(busy.values()) / (profiled_wall * 1e3)},
+            "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+            "kernel_launches_in_steps": 0}
+
+
+def train_streams(client, adapter: Optional[str] = None) -> list:
+    """TRAIN_PROMPTS' greedy streams on ``client``, each alone."""
+    from runbookai_tpu_torch.utils.tokens import ByteTokenizer
+
+    return [greedy_in_thread(client, [adapter], ByteTokenizer().encode(p),
+                             TRAIN_MAX_NEW)[0].all_out_ids for p in TRAIN_PROMPTS]
+
+
+def check_train_launches(what: str, launched: dict) -> dict:
+    if any(launched.get(k, 0) == 0 for k in TRAIN_MUST):
+        raise AssertionError(f"{what}: a kernel of the path never launched: {launched}")
+    return launched
+
+
+def phase_train_attention(torch) -> dict:
+    """The training attention (plain torch ops) forward and forward +
+    backward at the fine-tunes' shapes, CUDA events, beside the bounds
+    (each input read once and each output written once: q, k, v and the
+    output forward; q, k, v, the output's gradient and the three input
+    gradients forward + backward; operations: the causal triangle of the
+    two products, 2 B n_q T (T + 1) hd forward and twice that backward) and
+    SDPA's times (``enable_gqa``, ``is_causal``) on the same inputs, with
+    the largest difference from SDPA's output."""
+    from runbookai_tpu_torch.models.llama import dense_causal_attention, get_config
+
+    F = torch.nn.functional
+    out: dict = {"phase": "train_attention"}
+    for key, model, dtype in (("lora_8b", ENGINE_MODEL, torch.bfloat16),
+                              ("full_1b", TRAIN_FULL_MODEL, torch.float32)):
+        cfg = get_config(model)
+        b, t, n_q, n_kv, hd = TRAIN_BATCH, TRAIN_SEQ - 1, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        q, k, v = (torch.randn((b, t, n, hd), generator=gen, device=DEVICE).to(dtype)
+                   .requires_grad_(True) for n in (n_q, n_kv, n_kv))
+        g = torch.randn((b, t, n_q, hd), generator=gen, device=DEVICE).to(dtype)
+
+        def ours():
+            return dense_causal_attention(q, k, v)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+                enable_gqa=True).transpose(1, 2)
+
+        def backward(fn):
+            return lambda: torch.autograd.grad(fn(), (q, k, v), g)
+
+        elt = q.element_size()
+        q_bytes, kv_bytes = b * t * n_q * hd * elt, b * t * n_kv * hd * elt
+        flops = 2 * b * n_q * t * (t + 1) * hd
+        name = "bfloat16" if dtype == torch.bfloat16 else "float32"
+        with torch.no_grad():
+            diff = float((ours().float() - sdpa().float()).abs().max())
+        fwd_bound, fwd_by = bound(2 * q_bytes + 2 * kv_bytes, flops, name)
+        bwd_bound, bwd_by = bound(3 * q_bytes + 4 * kv_bytes, 3 * flops, name)
+        out[key] = {"model": model, "dtype": name, "shape": [b, t, n_q, n_kv, hd],
+                    "forward_ms": time_ms(ours), "forward_backward_ms": time_ms(backward(ours)),
+                    "forward_bound_ms": fwd_bound, "forward_bound_by": fwd_by,
+                    "forward_backward_bound_ms": bwd_bound, "forward_backward_bound_by": bwd_by,
+                    "library_forward_ms": time_ms(sdpa),
+                    "library_forward_backward_ms": time_ms(backward(sdpa)),
+                    "max_abs_diff_from_library": diff}
+    return out
+
+
+def phase_train_lora(torch, tmp: Path) -> tuple[dict, dict]:
+    """LoRA fine-tuning on the live 8B at all 32 layers (see the module's
+    phase 24); returns the phase line and the kernel launches of serving
+    the published adapter (graphs on)."""
+    import dataclasses
+
+    from runbookai_tpu_torch.model.torch_cuda import TorchCudaClient
+    from runbookai_tpu_torch.models.llama import get_config
+    from runbookai_tpu_torch.models.lora import LoraRegistry
+    from runbookai_tpu_torch.train.lora_trainer import LoraTrainer
+
+    free_device(torch)
+    cfg = get_config(ENGINE_MODEL)
+    peft = write_peft(tmp / "sre-a", 0, cfg.n_layers)
+    t0 = time.perf_counter()
+    client = TorchCudaClient.build(ENGINE_MODEL, device=DEVICE, dtype=torch.bfloat16, seed=0,
+                                   max_new_tokens=TRAIN_MAX_NEW, engine=LORA_ENGINE,
+                                   lora_rank=LORA_RANK, lora_adapters={"sre-a": str(peft)})
+    torch.cuda.synchronize()
+    out: dict = {"phase": "train_lora", "model": ENGINE_MODEL, "layers": cfg.n_layers,
+                 "dtype": "bfloat16", "rank": LORA_RANK, "targets": ["wq", "wv"],
+                 "learning_rate": TRAIN_LORA_LR, "build_s": time.perf_counter() - t0}
+    core, registry = client.core, client.core.lora
+    registry.register(TRAIN_ADAPTER, {})
+    core.refresh_lora()
+    idx = registry.index_of(TRAIN_ADAPTER)
+    base_streams = train_streams(client)
+    before = {t: {ab: w[:, :idx].clone() for ab, w in ab_w.items()}
+              for t, ab_w in registry.stacked().items()}
+    trainer = LoraTrainer(cfg, core.params, registry, TRAIN_ADAPTER,
+                          learning_rate=TRAIN_LORA_LR)
+    if not trainer.lora_tree["wq"]["A"][:, idx].any() or trainer.lora_tree["wq"]["B"][:, idx].any():
+        raise AssertionError("train_lora: the zero adapter was not initialised as A ~ N, B = 0")
+    out.update(train_steps(torch, trainer, train_tokens(torch, cfg.vocab_size), TRAIN_LORA_STEPS))
+    t0 = time.perf_counter()
+    trainer.publish()
+    core.refresh_lora()
+    torch.cuda.synchronize()
+    out["publish_refresh_s"] = time.perf_counter() - t0
+    stacked = registry.stacked()
+    for t, ab_w in stacked.items():
+        for ab, w in ab_w.items():
+            if not torch.equal(w[:, :idx], before[t][ab]) or not torch.equal(
+                    w[:, idx], trainer.lora_tree[t][ab][:, idx].detach().to(w.dtype)):
+                raise AssertionError(f"train_lora: publish wrote other rows of {t}.{ab}")
+    reset_counts()
+    live = train_streams(client, TRAIN_ADAPTER)
+    launched = check_train_launches("train_lora", counts())
+    if live == base_streams:
+        raise AssertionError("train_lora: the published adapter serves the base streams")
+    trainer.export_peft(tmp / "exported")
+    del trainer
+    fresh_reg = LoraRegistry(cfg, rank=LORA_RANK, targets=("wq", "wv"), dtype=torch.bfloat16,
+                             device=DEVICE)
+    fresh_reg.load_peft_dir(TRAIN_ADAPTER, tmp / "exported")
+    base = {k: v for k, v in core.params.items() if k != "lora"}
+    fresh = {}
+    for graphs in (True, False):
+        other = TorchCudaClient(TorchCudaClient._core(
+            cfg, base, client.tokenizer, dataclasses.replace(core.ecfg, step_graphs=graphs),
+            lora_registry=fresh_reg), client.tokenizer, max_new_tokens=TRAIN_MAX_NEW)
+        fresh[graphs] = train_streams(other, TRAIN_ADAPTER)
+        del other
+        free_device(torch)
+    if fresh[True] != live or fresh[False] != live:
+        raise AssertionError(f"train_lora: the exported adapter reloaded serves other streams "
+                             f"(graphs on: {first_divergence(fresh[True], live)}, off: "
+                             f"{first_divergence(fresh[False], live)})")
+    out.update(same_as_exported_graphs_on=True, same_as_exported_graphs_off=True,
+               differs_from_base=True, tokens=[len(s) for s in live], launches=launched)
+    del client, core, registry, base
+    free_device(torch)
+    return out, launched
+
+
+def phase_train_full(torch, tmp: Path) -> tuple[dict, dict]:
+    """Full fine-tuning of the 1B in float32 and its checkpoint (see the
+    module's phase 24); returns the phase line and the kernel launches of
+    serving the restored model (graphs on)."""
+    import contextlib
+    import io
+
+    from runbookai_tpu_torch import __main__ as cli
+    from runbookai_tpu_torch.model.torch_cuda import TorchCudaClient
+    from runbookai_tpu_torch.models.checkpoint import load_or_init, save_checkpoint
+    from runbookai_tpu_torch.models.llama import get_config
+    from runbookai_tpu_torch.train.trainer import Trainer
+
+    free_device(torch)
+    cfg = get_config(TRAIN_FULL_MODEL)
+    trainer = Trainer(cfg, learning_rate=TRAIN_FULL_LR, device=DEVICE)
+    out: dict = {"phase": "train_full", "model": TRAIN_FULL_MODEL, "layers": cfg.n_layers,
+                 "dtype": "float32", "optimizer": "adamw", "learning_rate": TRAIN_FULL_LR,
+                 "params": cfg.total_params}
+    out.update(train_steps(torch, trainer, train_tokens(torch, cfg.vocab_size),
+                           TRAIN_FULL_STEPS))
+    params = trainer.state.params
+    del trainer
+    free_device(torch)
+    path = tmp / "ckpt-1b"
+    t0 = time.perf_counter()
+    save_checkpoint(path, cfg, params)
+    out["write_s"] = time.perf_counter() - t0
+    out["checkpoint_bytes"] = sum(f.stat().st_size for f in path.iterdir())
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = cli.main(["weights", "info", str(path)])
+    info = json.loads(printed.getvalue())
+    if rc != 0 or info != json.loads(json.dumps(cfg.__dict__)):
+        raise AssertionError(f"train_full: weights info gave {rc} {printed.getvalue()[:300]}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rcfg, restored = load_or_init(TRAIN_FULL_MODEL, str(path), dtype=torch.float32,
+                                  device=DEVICE)
+    torch.cuda.synchronize()
+    out["read_s"] = time.perf_counter() - t0
+    unequal = [name for name in params["layers"] if not torch.equal(
+        restored["layers"][name], params["layers"][name])] + [
+        name for name in params if name != "layers" and not torch.equal(restored[name],
+                                                                         params[name])]
+    if rcfg != cfg or unequal or restored.keys() != params.keys():
+        raise AssertionError(f"train_full: the checkpoint restored other tensors: {unequal}")
+    del restored
+    free_device(torch)
+    params = {k: ({n: w.detach() for n, w in v.items()} if k == "layers" else v.detach())
+              for k, v in params.items()}
+    restored_client = TorchCudaClient.build(TRAIN_FULL_MODEL, device=DEVICE,
+                                            dtype=torch.float32, model_path=str(path),
+                                            max_new_tokens=TRAIN_MAX_NEW)
+    reset_counts()
+    served = train_streams(restored_client)
+    launched = check_train_launches("train_full", counts())
+    tok = restored_client.tokenizer
+    in_memory = TorchCudaClient(TorchCudaClient._core(cfg, params, tok,
+                                                      restored_client.core.ecfg),
+                                tok, max_new_tokens=TRAIN_MAX_NEW)
+    if train_streams(in_memory) != served:
+        raise AssertionError("train_full: the restored model and the trained one in memory "
+                             "serve other streams")
+    out.update(restored_bit_equal=True, same_streams_restored_and_in_memory=True,
+               tokens=[len(s) for s in served], launches=launched)
+    del restored_client, in_memory, params
+    free_device(torch)
+    return out, launched
+
+
+def phase_train_chat(torch, tmp: Path) -> tuple[dict, dict]:
+    """``chat --raw`` through the CLI on the 8B at CUT_LAYERS layers, with
+    TRAIN_CHAT_TURNS piped into standard input; returns the phase line and
+    the kernel launches of the two turns."""
+    import dataclasses
+    import io
+    from unittest import mock
+
+    from runbookai_tpu_torch.model.torch_cuda import TorchCudaClient
+    from runbookai_tpu_torch.models import llama
+
+    free_device(torch)
+    clients = []
+    from_config = TorchCudaClient.from_config.__func__
+
+    def kept(cls, *args, **kw):
+        clients.append(from_config(cls, *args, **kw))
+        return clients[-1]
+
+    config = serve_config(tmp, {"max_new_tokens": TRAIN_MAX_NEW})
+    cfg = llama.get_config(ENGINE_MODEL)
+    depth = {ENGINE_MODEL: dataclasses.replace(cfg, n_layers=CUT_LAYERS)}
+    typed = io.StringIO("".join(f"{turn}\n" for turn in TRAIN_CHAT_TURNS) + "\n")
+    reset_counts()
+    with mock.patch.dict(llama.CONFIGS, depth), mock.patch.object(sys, "stdin", typed), \
+            mock.patch.object(TorchCudaClient, "from_config", classmethod(kept)):
+        rc, printed, wall = run_cli(["chat", "--raw", "--config", str(config)])
+    launched = check_train_launches("train_chat", counts())
+    reqs = list(clients[0].core.finished) if len(clients) == 1 else []
+    if rc != 0 or len(reqs) != 2 or printed.count("you> ") != 3 or not (
+            "runbook chat --raw" in printed) or len(reqs[1].prompt_ids) <= len(
+            reqs[0].prompt_ids) or any(not 1 <= r.num_generated <= TRAIN_MAX_NEW for r in reqs):
+        raise AssertionError(f"train_chat: rc {rc}, {len(reqs)} requests, printed "
+                             f"{printed[:300]!r}")
+    del clients
+    free_device(torch)
+    return ({"phase": "train_chat", "model": ENGINE_MODEL, "layers": CUT_LAYERS,
+             "wall_s": wall, "prompt_tokens": [len(r.prompt_ids) for r in reqs],
+             "completion_tokens": [r.num_generated for r in reqs], "launches": launched},
+            launched)
+
+
+def train_phases(torch) -> dict:
+    """Phase 24; returns the kernel launches of its serving runs (graphs on,
+    the counts set to 0 before each)."""
+    import tempfile
+
+    emit(phase_train_attention(torch))
+    total: dict = {}
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
+        for run in (phase_train_lora, phase_train_full, phase_train_chat):
+            line, launched = run(torch, Path(tmp))
+            emit(line)
+            for k, n in launched.items():
+                total[k] = total.get(k, 0) + n
+    free_device(torch)
+    return total
+
+
 def main() -> int:
     try:
         import torch
@@ -5827,6 +6211,9 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--moe"]:
         moe_phases(torch)
+        return 0
+    if sys.argv[1:2] == ["--train"]:
+        train_phases(torch)
         return 0
     dec = phase_decode(pa, torch)
     emit(dec)
@@ -5951,6 +6338,10 @@ def main() -> int:
     # Mixtral (phase 23): moe_ffn at its widths, bf16 at 8 layers and the
     # int8 deployment at 32, each graphs on and off; K1, K2 and K5 counted.
     moe = moe_phases(torch)
+    # Fine-tuning and checkpoints (phase 24): the 8B's LoRA published into its
+    # live engine, the 1B's full fine-tune restored from its checkpoint, and
+    # chat --raw; K1's and K2's launches read around their serving runs.
+    train = train_phases(torch)
     decp = phase_decode_partial(pa, torch)
     emit(decp)
     chkp = phase_chunk_partial(pa, torch)
@@ -5994,6 +6385,7 @@ def main() -> int:
                         "replaces": replaces, "launches": served["launches"][name],
                         "lora_draft_launches": lora_draft.get(name, 0),
                         "moe_launches": moe.get(name, 0),
+                        "train_launches": train.get(name, 0),
                         "max_abs_err": max(main_path["max_abs_err"],
                                            *(main_path[x]["max_abs_err"] for x in subs)),
                         "f32_cuda_core_max_abs_err": res["float32"]["max_abs_err"],
@@ -6009,6 +6401,7 @@ def main() -> int:
                         "replaces": f"{pallas}:397", "launches": served["launches"][name],
                         "lora_draft_launches": lora_draft.get(name, 0),
                         "moe_launches": moe.get(name, 0),
+                        "train_launches": train.get(name, 0),
                         "max_abs_err": main_path["max_abs_err"],
                         "f32_cuda_core_max_abs_err": res["float32"]["max_abs_err"],
                         **{f: main_path[f] for f in fields + ("device_ms", "graph_ms",
@@ -6055,6 +6448,7 @@ def main() -> int:
                     "launches_fp8": eng_f8["launches"]["paged_chunk_merge"],
                     "lora_draft_launches": lora_draft.get("paged_chunk_merge", 0),
                     "moe_launches": moe.get("paged_chunk_merge", 0),
+                    "train_launches": train.get("paged_chunk_merge", 0),
                     "max_abs_err": max(merge["max_abs_err"],
                                        chk8["bfloat16"]["merge"]["max_abs_err"]),
                     **{f: merge[f] for f in fields + ("device_ms", "graph_ms", "cold_ms")},

@@ -1,6 +1,10 @@
-"""``python -m runbookai_tpu_torch chat|complete|ask|investigate|knowledge|eval|simulate|serve``.
+"""``python -m runbookai_tpu_torch <command>``: chat, complete, ask, investigate,
+knowledge, eval, simulate, serve, deploy, demo, status, init, config,
+checkpoint, weights.
 
-``chat``/``complete "<prompt>"`` serve one turn.
+``chat``/``complete "<prompt>"`` serve one turn. ``chat`` without a prompt
+is the JAX CLI's interactive conversation over the agent loop (``--raw``:
+its direct streaming chat with the model), on ``--config``'s runtime.
 
 Builds the client (the HF weights directory of ``--model-path`` or
 ``$RUNBOOK_WEIGHTS`` when there is one, else random weights from ``--seed``;
@@ -52,6 +56,13 @@ weights (``model_path``) or a test model, and stops on an interrupt.
 ``llm.lora_adapters`` serves each adapter by name and ``llm.draft_model``
 drafts the engine's speculation; ``--allow-adapter-loading`` opens ``POST
 /v1/adapters``, which hot-loads a PEFT directory into the running engine.
+
+``deploy``, ``demo``, ``status``, ``init``, ``config`` and ``checkpoint
+list|show|delete`` are the JAX CLI's commands of those names. ``weights
+convert <hf dir> <out>`` writes the port's weight checkpoint
+(``models/checkpoint.py``; ``--int8``, ``--random-init``), which
+``--model-path`` and ``llm.model_path`` then load, and ``weights info``
+prints its config.
 """
 
 from __future__ import annotations
@@ -70,7 +81,13 @@ from runbookai_tpu_torch.agent.llm_parser import SCHEMA_MODELS
 from runbookai_tpu_torch.model.torch_cuda import TorchCudaClient
 from runbookai_tpu_torch.ops import paged_attention, qmm
 from runbookai_tpu_torch.unported import unported
-from runbookai_tpu_torch.utils.config import load_config, validate_config
+from runbookai_tpu_torch.utils.config import (
+    Config,
+    load_config,
+    save_config,
+    set_config_value,
+    validate_config,
+)
 
 
 _token_line_open = False
@@ -143,6 +160,271 @@ def cmd_investigate(args) -> int:
     print(f"\nroot cause: {result.root_cause}")
     print(f"confidence: {result.confidence}")
     print(f"services:   {', '.join(result.affected_services)}")
+    return 0
+
+
+def cmd_deploy(args) -> int:
+    """Deploy via the deploy-service skill through the agent loop:
+    pre-deployment checks first; mutations route through the safety and
+    approval gate like any other remediation."""
+    from runbookai_tpu_torch.cli.runtime import build_agent, build_runtime
+
+    config = load_config(path=args.config)
+    runtime = build_runtime(config, interactive=not args.yes, device=args.device)
+    agent = build_agent(runtime)
+    version = f" version {args.version}" if args.version else ""
+    if args.dry_run:
+        query = (f"Show me what would happen if I deploy {args.service} to "
+                 f"{args.environment}{version}. Do not execute, just explain "
+                 "the steps.")
+    else:
+        query = (f"Deploy {args.service} to {args.environment}{version} using "
+                 "the deploy-service skill. Perform all pre-deployment checks "
+                 "first.")
+    print(f"Deploying {args.service} to {args.environment}..."
+          + (" (dry run)" if args.dry_run else ""))
+
+    async def run() -> None:
+        async for ev in agent.run(query):
+            _print_event(ev)
+
+    asyncio.run(_serving(runtime.llm, run()))
+    return 0
+
+
+def _read_turns(prompt: str):
+    """The lines typed at ``prompt`` until an empty line, ``exit``/``quit``,
+    end of input or an interrupt."""
+    while True:
+        try:
+            line = input(prompt).strip()
+        except (EOFError, KeyboardInterrupt):
+            return
+        if not line or line in ("exit", "quit"):
+            return
+        yield line
+
+
+def cmd_chat(args) -> int:
+    """``chat "<prompt>"`` serves one turn (:func:`cmd_turn`); ``chat``
+    alone is the JAX CLI's interactive conversation over the agent loop,
+    with a ``ConversationMemory`` carrying the earlier turns, and ``chat
+    --raw`` its direct streaming chat with the model."""
+    if args.prompt is not None:
+        return cmd_turn(args)
+    from runbookai_tpu_torch.agent.memory import ConversationMemory
+    from runbookai_tpu_torch.cli.runtime import build_agent, build_runtime
+
+    config = load_config(path=args.config)
+    runtime = build_runtime(config, device=args.device)
+    if args.raw:
+        return _chat_raw(runtime)
+    agent = build_agent(runtime)
+    memory = ConversationMemory(summarize_after_messages=16)
+    print("runbook chat — empty line or 'exit' to quit")
+
+    async def turn(text: str) -> None:
+        memory.add("user", text)
+        answer = ""
+        query = text
+        context = memory.context_block()
+        if context:
+            query = f"{context}\n\n# Current question\n{text}"
+        async for ev in agent.run(query):
+            if ev.kind == "answer":
+                answer = ev.data["text"]
+            _print_event(ev)
+        memory.add("assistant", answer)
+        if memory.needs_summarization:
+            await memory.summarize(runtime.llm)
+
+    for line in _read_turns("\nyou> "):
+        asyncio.run(turn(line))
+    if hasattr(runtime.llm, "shutdown"):
+        asyncio.run(runtime.llm.shutdown())
+    return 0
+
+
+def _chat_raw(runtime) -> int:
+    """Direct model chat (no agent loop): tokens print as they stream."""
+    history: list[tuple[str, str]] = []
+    llm = runtime.llm
+    print("runbook chat --raw — streaming model chat; empty line to quit")
+
+    async def turn(text: str) -> None:
+        pieces = []
+        # Earlier turns ride in the prompt (this path has no
+        # ConversationMemory; without them every turn would be stateless).
+        if history:
+            transcript = "\n".join(f"{role}: {msg}" for role, msg in history)
+            prompt = (f"# Conversation so far\n{transcript}\n\n"
+                      f"# Current message\n{text}")
+        else:
+            prompt = text
+        async for ev in llm.chat_stream("You are a concise SRE assistant.", prompt):
+            if ev.get("type") == "text":
+                pieces.append(ev["delta"])
+                print(ev["delta"], end="", flush=True)
+        print()
+        history.append(("user", text))
+        history.append(("assistant", "".join(pieces)))
+
+    for line in _read_turns("\nyou> "):
+        asyncio.run(turn(line))
+    if hasattr(llm, "shutdown"):
+        asyncio.run(llm.shutdown())
+    return 0
+
+
+def cmd_demo(args) -> int:
+    from runbookai_tpu_torch.demo.runner import run_demo
+
+    run_demo(emit=_print_event, fast=args.fast)
+    return 0
+
+
+def cmd_status(args) -> int:
+    config = load_config(path=args.config)
+    problems = validate_config(config)
+    print(f"llm provider: {config.llm.provider} ({config.llm.model})")
+    enabled = []
+    if config.providers.aws.enabled:
+        enabled.append("aws" + (" (simulated)" if config.providers.aws.simulated else ""))
+    if config.providers.kubernetes.enabled:
+        enabled.append("kubernetes"
+                       + (" (simulated)" if config.providers.kubernetes.simulated else ""))
+    for name, c in (("datadog", config.observability.datadog),
+                    ("prometheus", config.observability.prometheus),
+                    ("pagerduty", config.incident.pagerduty),
+                    ("opsgenie", config.incident.opsgenie),
+                    ("slack", config.incident.slack)):
+        if c.enabled:
+            enabled.append(name)
+    print(f"providers: {', '.join(enabled) or '(none enabled)'}")
+    db = Path(config.knowledge.db_path)
+    if db.is_file():
+        from runbookai_tpu_torch.knowledge.store.sqlite_fts import KnowledgeStore
+
+        stats = KnowledgeStore(db).stats()
+        print(f"knowledge: {stats['documents']} docs / {stats['chunks']} chunks")
+    else:
+        print("knowledge: (no database — run `runbook knowledge sync`)")
+    if problems:
+        print("config problems:")
+        for p in problems:
+            print(f"  - {p}")
+        return 1
+    print("config: ok")
+    return 0
+
+
+def cmd_init(args) -> int:
+    target = Path(args.dir or ".") / ".runbook" / "config.yaml"
+    if target.exists() and not args.force and not args.interactive:
+        print(f"{target} already exists (use --force to overwrite)")
+        return 1
+    if args.interactive:
+        from runbookai_tpu_torch.cli.wizard import (
+            hydrate_answers,
+            run_wizard,
+            save_wizard_configs,
+        )
+
+        base = hydrate_answers(target.parent) if target.exists() else None
+        answers = run_wizard(base=base)
+        config_path, services_path = save_wizard_configs(answers, config_dir=target.parent)
+        print(f"wrote {config_path} and {services_path}")
+        return 0
+    config = Config()
+    if args.template == "simulated":
+        config = Config.model_validate({
+            "llm": {"provider": "mock"},
+            "providers": {"aws": {"enabled": True, "simulated": True},
+                          "kubernetes": {"enabled": True, "simulated": True}},
+            "observability": {"datadog": {"enabled": True, "simulated": True},
+                              "prometheus": {"enabled": True, "simulated": True}},
+            "incident": {"pagerduty": {"enabled": True, "simulated": True}},
+        })
+    elif args.template == "tpu":
+        config = Config.model_validate({
+            "llm": {"provider": "jax-tpu", "model": "llama3-8b-instruct",
+                    "dtype": "bfloat16"},
+            "providers": {"aws": {"enabled": True, "simulated": True},
+                          "kubernetes": {"enabled": True, "simulated": True}},
+            "incident": {"pagerduty": {"enabled": True, "simulated": True}},
+        })
+    save_config(config, target)
+    print(f"wrote {target} (template: {args.template})")
+    return 0
+
+
+def cmd_config(args) -> int:
+    config = load_config(path=args.config)
+    if args.set:
+        for assignment in args.set:
+            if "=" not in assignment:
+                print(f"expected key=value, got {assignment!r}")
+                return 1
+            key, value = assignment.split("=", 1)
+            config = set_config_value(config, key.strip(), value.strip())
+        path = args.config or Path(".runbook") / "config.yaml"
+        save_config(config, path)
+        print(f"updated {path}")
+    if args.show or not args.set:
+        print(json.dumps(config.model_dump(mode="json"), indent=2))
+    return 0
+
+
+def cmd_checkpoint(args) -> int:
+    from runbookai_tpu_torch.session.checkpoint import CheckpointStore
+
+    config = load_config(path=args.config)
+    store = CheckpointStore(f"{config.runbook_dir}/checkpoints")
+    if args.checkpoint_cmd == "list":
+        metas = store.list(args.investigation)
+        for m in metas:
+            print(f"{m.checkpoint_id}  {m.investigation_id:14} {m.phase:12} {m.label}")
+        if not metas:
+            print("(no checkpoints)")
+        return 0
+    if args.checkpoint_cmd == "show":
+        data = store.show(args.checkpoint_id)
+        if data is None:
+            print("not found")
+            return 1
+        print(json.dumps(data, indent=2, default=str))
+        return 0
+    ok = store.delete(args.checkpoint_id)  # delete
+    print("deleted" if ok else "not found")
+    return 0 if ok else 1
+
+
+def cmd_weights(args) -> int:
+    """``weights convert`` writes the port's checkpoint of an HF directory
+    (``models/checkpoint.py``), through ``--device``; ``weights info``
+    prints a checkpoint's config."""
+    from runbookai_tpu_torch.models.checkpoint import (
+        checkpoint_config,
+        convert_hf_to_checkpoint,
+        is_checkpoint,
+    )
+
+    if args.weights_cmd == "convert":
+        try:
+            out = convert_hf_to_checkpoint(
+                args.model_path, args.out, model_name=args.name,
+                quantize_int8=args.int8, allow_random_init=args.random_init,
+                device=args.device)
+        except FileNotFoundError as exc:
+            print(f"error: {exc}", file=sys.stderr)
+            return 1
+        print(f"wrote checkpoint: {out} (int8={args.int8})")
+        return 0
+    if not is_checkpoint(args.path):
+        print(f"not a checkpoint: {args.path}")
+        return 1
+    cfg = checkpoint_config(args.path)
+    print(json.dumps(cfg.__dict__, indent=2))
     return 0
 
 
@@ -537,6 +819,74 @@ def _knowledge_parser(sub) -> None:
     kn.set_defaults(fn=cmd_knowledge)
 
 
+def _session_parsers(sub) -> None:
+    """``deploy``, ``demo``, ``status``, ``init``, ``config``, ``checkpoint``
+    and ``weights``, with the JAX CLI's flags and defaults; each that reads
+    the config takes ``--config``, and those that serve the model or touch
+    weights ``--device``."""
+    dep = sub.add_parser("deploy", help="deploy a service via the deploy-service skill")
+    dep.add_argument("service")
+    dep.add_argument("-e", "--environment", default="production")
+    dep.add_argument("--version", default=None)
+    dep.add_argument("--dry-run", action="store_true")
+    dep.add_argument("--yes", action="store_true",
+                     help="non-interactive: no CLI prompts; mutations are denied "
+                          "unless Slack approvals are configured")
+    _runtime_options(dep)
+    dep.set_defaults(fn=cmd_deploy)
+
+    demo = sub.add_parser("demo", help="scripted demo investigation (no model)")
+    demo.add_argument("--fast", action="store_true", help="3x speed")
+    demo.set_defaults(fn=cmd_demo)
+
+    status = sub.add_parser("status", help="config + provider status")
+    status.add_argument("--config", help="explicit config.yaml path")
+    status.set_defaults(fn=cmd_status)
+
+    init = sub.add_parser("init", help="write a starter config")
+    init.add_argument("--template", choices=["minimal", "simulated", "tpu"],
+                      default="simulated")
+    init.add_argument("--dir", default=".")
+    init.add_argument("--force", action="store_true")
+    init.add_argument("--interactive", "-i", action="store_true",
+                      help="guided setup wizard (hydrates an existing config)")
+    init.set_defaults(fn=cmd_init)
+
+    cfg = sub.add_parser("config", help="show or set config values")
+    cfg.add_argument("--set", action="append", metavar="a.b.c=value")
+    cfg.add_argument("--show", action="store_true")
+    cfg.add_argument("--config", help="explicit config.yaml path")
+    cfg.set_defaults(fn=cmd_config)
+
+    cp = sub.add_parser("checkpoint", help="investigation checkpoints")
+    cp.add_argument("--config", help="explicit config.yaml path")
+    cp_sub = cp.add_subparsers(dest="checkpoint_cmd", required=True)
+    cp_list = cp_sub.add_parser("list")
+    cp_list.add_argument("--investigation", default=None)
+    cp_show = cp_sub.add_parser("show")
+    cp_show.add_argument("checkpoint_id")
+    cp_del = cp_sub.add_parser("delete")
+    cp_del.add_argument("checkpoint_id")
+    cp.set_defaults(fn=cmd_checkpoint)
+
+    w = sub.add_parser("weights", help="model weight checkpoints")
+    w_sub = w.add_subparsers(dest="weights_cmd", required=True)
+    conv = w_sub.add_parser(
+        "convert", help="HF safetensors -> the port's checkpoint (optionally int8)")
+    conv.add_argument("model_path", help="HF model dir (safetensors + config)")
+    conv.add_argument("out", help="output checkpoint dir")
+    conv.add_argument("--int8", action="store_true",
+                      help="quantize layer weights to int8 during conversion")
+    conv.add_argument("--name", default="hf-model")
+    conv.add_argument("--random-init", action="store_true",
+                      help="allow a missing model_path (random weights; CI only)")
+    conv.add_argument("--device", default="cuda",
+                      help="where the weights are loaded or drawn (default: the card)")
+    info = w_sub.add_parser("info", help="describe a checkpoint")
+    info.add_argument("path")
+    w.set_defaults(fn=cmd_weights)
+
+
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m runbookai_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -562,15 +912,22 @@ def _parser() -> argparse.ArgumentParser:
                        help="enable POST /v1/adapters (operator action)")
     _runtime_options(serve)
     serve.set_defaults(fn=cmd_serve)
-    chat = sub.add_parser("chat", help="serve one chat turn")
+    _session_parsers(sub)
+    chat = sub.add_parser("chat", help="serve one chat turn, or without a prompt an "
+                                       "interactive conversation")
+    chat.add_argument("prompt", nargs="?", default=None)
+    chat.add_argument("--raw", action="store_true",
+                      help="without a prompt: direct streaming model chat (no agent loop)")
+    chat.add_argument("--config", help="without a prompt: explicit config.yaml path")
+    chat.set_defaults(fn=cmd_chat)
     complete = sub.add_parser("complete", help="serve one guided-JSON completion")
+    complete.add_argument("prompt")
     complete.add_argument("--schema", choices=sorted(SCHEMA_MODELS),
                           help="an orchestrator schema (default: any JSON document)")
     complete.add_argument("--no-guided", dest="guided", action="store_false",
                           help="serve the completion without grammar masks")
+    complete.set_defaults(fn=cmd_turn)
     for cmd in (chat, complete):
-        cmd.set_defaults(fn=cmd_turn)
-        cmd.add_argument("prompt")
         cmd.add_argument("--model", default="llama3-8b-instruct")
         cmd.add_argument("--model-path", default=None,
                          help="HF weights directory (default: $RUNBOOK_WEIGHTS, "

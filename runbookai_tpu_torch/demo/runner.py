@@ -1,11 +1,48 @@
-"""The terminal line renderer of the JAX package's ``demo/runner.py``,
-copied alone: ``render_event`` prints the agent's events for ``ask`` and
-``investigate``. The scripted demo playback is not ported.
+"""Scripted demo playback (reference ``src/demo/demo-runner.ts:223``).
+
+Replays the canned investigation with timing; ``--fast`` is 3×. Renders
+through the same event vocabulary as real runs so the terminal output is
+identical in shape to a live investigation.
 """
 
 from __future__ import annotations
 
+import time
+from typing import Callable, Optional
+
+from runbookai_tpu_torch.demo.data import DEMO_CHART, DEMO_INCIDENT, DEMO_SCRIPT
 from runbookai_tpu_torch.agent.types import AgentEvent
+
+
+def run_demo(
+    emit: Optional[Callable[[AgentEvent], None]] = None,
+    fast: bool = False,
+    sleep=time.sleep,
+) -> list[AgentEvent]:
+    """Play the demo; returns the event list (also streamed via ``emit``)."""
+    speed = 3.0 if fast else 1.0
+    events: list[AgentEvent] = []
+
+    def push(kind: str, data: dict) -> None:
+        ev = AgentEvent(kind, data)
+        events.append(ev)
+        if emit:
+            emit(ev)
+
+    push("start", {"incident": DEMO_INCIDENT, "demo": True})
+    for delay, kind, payload in DEMO_SCRIPT:
+        sleep(delay / speed)
+        if kind == "conclusion":
+            # Attach the latency chart the visualization policy mandates.
+            from runbookai_tpu_torch.tools.diagram import line_chart, sparkline
+
+            payload = dict(payload)
+            payload["chart"] = line_chart(
+                [float(v) for v in DEMO_CHART],
+                label="payment-api p99 latency (ms), last 60m")
+            payload["sparkline"] = sparkline([float(v) for v in DEMO_CHART])
+        push(kind, payload)
+    return events
 
 
 def render_event(ev: AgentEvent) -> str:

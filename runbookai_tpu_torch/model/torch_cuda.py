@@ -36,7 +36,7 @@ from runbookai_tpu_torch.model.chat_template import (
 from runbookai_tpu_torch.model.client import BaseLLMClient
 from runbookai_tpu_torch.model.guided import JsonMaskProvider
 from runbookai_tpu_torch.model.schema_guided import orchestrator_schemas
-from runbookai_tpu_torch.models.hf_loader import config_from_hf, load_or_init
+from runbookai_tpu_torch.models.checkpoint import load_or_init, model_config
 from runbookai_tpu_torch.models.llama import LlamaConfig, get_config
 from runbookai_tpu_torch.models.lora import LoraRegistry
 from runbookai_tpu_torch.parallel.kv_split import plan_kv_split
@@ -175,7 +175,7 @@ class TorchCudaClient(BaseLLMClient):
             raise FileNotFoundError(f"model_path {model_path!r} does not exist")
         weights = discover_weights(model, model_path)
         tokenizer = load_tokenizer(tokenizer_path or weights)
-        cfg = config_from_hf(weights, name=model) if weights else get_config(model)
+        cfg = model_config(model, weights)
         mesh = None
         if tp > 1:
             if devices is None and dev.type == "cpu":
@@ -277,8 +277,7 @@ class TorchCudaClient(BaseLLMClient):
                  "int8": "int8"}[llm_cfg.dtype]
         act = torch.bfloat16 if dtype == "int8" else dtype
         weights = discover_weights(llm_cfg.model, llm_cfg.model_path)
-        cfg = (config_from_hf(weights, name=llm_cfg.model) if weights
-               else get_config(llm_cfg.model))
+        cfg = model_config(llm_cfg.model, weights)
         ecfg = EngineConfig(
             page_size=llm_cfg.page_size,
             num_pages=llm_cfg.num_pages,

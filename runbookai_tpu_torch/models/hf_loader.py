@@ -18,13 +18,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from runbookai_tpu_torch.models.llama import (
-    LlamaConfig,
-    Params,
-    get_config,
-    init_params,
-    init_params_quantized,
-)
+from runbookai_tpu_torch.models.llama import LlamaConfig, Params
 from runbookai_tpu_torch.models.quant import LAYER_QUANT_KEYS, quantize_array_np
 
 # Our layer-stacked param leaf -> (HF template, transpose?)
@@ -52,8 +46,10 @@ _BIAS_MAP = {
 
 SUPPORTED_MODEL_TYPES = ("llama", "qwen2", "mistral", "mixtral")
 
-_ST_DTYPES = {"F32": np.float32, "F16": np.float16, "BF16": np.uint16,
-              "I64": np.int64, "I32": np.int32}
+# safetensors dtype codes <-> torch dtypes.
+_ST_DTYPES = {"F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
+              "I64": torch.int64, "I32": torch.int32, "I8": torch.int8}
+_ST_CODES = {v: k for k, v in _ST_DTYPES.items()}
 
 
 def config_from_hf(model_dir: str | Path, name: str = "hf-model") -> LlamaConfig:
@@ -102,24 +98,60 @@ def config_from_hf(model_dir: str | Path, name: str = "hf-model") -> LlamaConfig
     )
 
 
+def iter_safetensors(path: str | Path):
+    """``(name, tensor)`` for every tensor of one ``.safetensors`` file, on
+    the CPU, in file order. Each tensor's bytes are read straight into its
+    own storage (``readinto``), so the host holds the tensors once and, when
+    the caller moves each away before the next, one tensor at a time."""
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+        body = 8 + n
+        entries = sorted(((name, info) for name, info in header.items()
+                          if name != "__metadata__"),
+                         key=lambda item: item[1]["data_offsets"][0])
+        for name, info in entries:
+            if info["dtype"] not in _ST_DTYPES:
+                raise ValueError(f"{path}: tensor {name} has unsupported dtype "
+                                 f"{info['dtype']}")
+            start, end = info["data_offsets"]
+            t = torch.empty(info["shape"], dtype=_ST_DTYPES[info["dtype"]])
+            if t.numel() * t.element_size() != end - start:
+                raise ValueError(f"{path}: tensor {name} holds {end - start} bytes, "
+                                 f"not {info['shape']} {info['dtype']}")
+            f.seek(body + start)
+            if f.readinto(t.reshape(-1).view(torch.uint8).numpy()) != end - start:
+                raise ValueError(f"{path}: tensor {name} is cut short")
+            yield name, t
+
+
 def read_safetensors(path: str | Path) -> dict[str, torch.Tensor]:
     """Every tensor of one ``.safetensors`` file, on the CPU."""
-    data = Path(path).read_bytes()
-    (n,) = struct.unpack("<Q", data[:8])
-    header = json.loads(data[8:8 + n])
-    body = memoryview(data)[8 + n:]
-    out: dict[str, torch.Tensor] = {}
-    for name, info in header.items():
-        if name == "__metadata__":
-            continue
-        if info["dtype"] not in _ST_DTYPES:
-            raise ValueError(f"{path}: tensor {name} has unsupported dtype "
-                             f"{info['dtype']}")
-        start, end = info["data_offsets"]
-        arr = np.frombuffer(body[start:end], dtype=_ST_DTYPES[info["dtype"]])
-        t = torch.from_numpy(arr.copy()).reshape(info["shape"])
-        out[name] = t.view(torch.bfloat16) if info["dtype"] == "BF16" else t
-    return out
+    return dict(iter_safetensors(path))
+
+
+def write_safetensors(path: str | Path, tensors: dict) -> None:
+    """Write ``tensors`` (name -> torch tensor, on any device, or numpy
+    array) as one ``.safetensors`` file in insertion order: the 8-byte
+    little-endian header length, the JSON header padded with spaces to 8
+    bytes, then each tensor's raw little-endian bytes. Tensors reach the
+    host one at a time."""
+    tensors = {name: torch.from_numpy(np.ascontiguousarray(x)) if isinstance(x, np.ndarray)
+               else x for name, x in tensors.items()}
+    header, off = {}, 0
+    for name, t in tensors.items():
+        if t.dtype not in _ST_CODES:
+            raise ValueError(f"tensor {name}: dtype {t.dtype} has no safetensors code")
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": _ST_CODES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [off, off + n]}
+        off += n
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)) + head)
+        for t in tensors.values():
+            f.write(t.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().data)
 
 
 def _read_dir(model_dir: Path) -> dict[str, torch.Tensor]:
@@ -188,23 +220,3 @@ def load_params(model_dir: str | Path, cfg: Optional[LlamaConfig] = None,
     if not cfg.tie_embeddings:
         params["lm_head"] = put(raw["lm_head.weight"].T, dtype)
     return cfg, params
-
-
-def load_or_init(model_name: str, model_path: Optional[str | Path],
-                 dtype: torch.dtype = torch.bfloat16, device="cuda", seed: int = 0,
-                 quantize_int8: bool = False) -> tuple[LlamaConfig, Params]:
-    """Load an HF directory at ``model_path`` when it exists, else draw
-    ``model_name``'s params at random from ``seed``, on ``device`` (cuda
-    unless the caller passes ``device="cpu"``). ``quantize_int8`` gives the
-    seven layer matrices as int8 ``{"q", "s"}`` leaves, quantized on the host
-    when loaded (``load_params``), drawn directly in int8 when random
-    (``init_params_quantized``); ``dtype`` is the activation dtype."""
-    if model_path and Path(model_path).exists():
-        cfg = config_from_hf(model_path, name=model_name)
-        return load_params(model_path, cfg, dtype=dtype, device=device,
-                           quantize_int8=quantize_int8)
-    cfg = get_config(model_name)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    init = init_params_quantized if quantize_int8 else init_params
-    return cfg, init(cfg, dtype=dtype, device=device, generator=gen)

@@ -1,4 +1,4 @@
-"""Llama-3 family in PyTorch — the paged serving forward.
+"""Llama-3 family in PyTorch — the paged serving forward and the training forward.
 
 The counterpart of ``runbookai_tpu/models/llama.py`` on one GPU:
 
@@ -25,6 +25,9 @@ The counterpart of ``runbookai_tpu/models/llama.py`` on one GPU:
   per shard; the forward loops over the shards inside the layer loop and
   writes out the collectives that XLA inserts from the JAX package's
   shardings (:func:`_forward_hidden_sharded`).
+- Training (:func:`forward_train`): the same layer pieces under autograd
+  over dense causal attention, for ``train/trainer.py`` and
+  ``train/lora_trainer.py``.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from dataclasses import dataclass
 from typing import Any, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from runbookai_tpu_torch.models.lora import layer_lora, with_lora
 from runbookai_tpu_torch.models.quant import is_quantized
@@ -357,15 +361,22 @@ def qmm(x: torch.Tensor, w: Any) -> torch.Tensor:
     (prefill, and the MoE experts' batched ``[E, C, K] @ [E, K, N]`` with
     scales ``[E, 1, N]``) to ``(x @ q) * s`` in x's dtype through
     ``torch.matmul``, which widens the whole int8 matrix first."""
-    if not is_quantized(w):
-        return x @ w
-    q, s = w["q"], w["s"]
-    if q.dim() == 2:
-        k_dim, n = q.shape
+    if is_quantized(w) and w["q"].dim() == 2:
+        k_dim, n = w["q"].shape
         lead = x.shape[:-1]
         if qmm_eligible(math.prod(lead), k_dim, n):
-            return qmm_int8(x.reshape(-1, k_dim), q, s.reshape(1, n)).reshape(*lead, n)
-    return (x @ q.to(x.dtype)) * s.to(x.dtype)
+            return qmm_int8(x.reshape(-1, k_dim), w["q"], w["s"].reshape(1, n)).reshape(*lead, n)
+    return qmm_widened(x, w)
+
+
+def qmm_widened(x: torch.Tensor, w: Any) -> torch.Tensor:
+    """``x @ w`` through ``torch.matmul`` for every shape: an int8 ``{"q",
+    "s"}`` weight as ``(x @ q) * s`` with ``q`` widened to x's dtype first.
+    This is the JAX package's ``qmm(impl="xla")``, which its training forward
+    takes; it has a backward, where the kernel behind :func:`qmm` has none."""
+    if not is_quantized(w):
+        return x @ w
+    return (x @ w["q"].to(x.dtype)) * w["s"].to(x.dtype)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -375,16 +386,17 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     return (norm * weight).to(x.dtype)
 
 
-def ffn_block(y: torch.Tensor, lp: dict, cfg: LlamaConfig, first_expert: int = 0
-              ) -> torch.Tensor:
-    """SwiGLU FFN, dense or Mixtral's routed experts (:func:`moe_ffn`, over
-    the experts ``lp`` holds from ``first_expert`` on); the residual is
-    added by the caller."""
+def ffn_block(y: torch.Tensor, lp: dict, cfg: LlamaConfig, first_expert: int = 0,
+              matmul=qmm) -> torch.Tensor:
+    """SwiGLU FFN, dense (its products through ``matmul``) or Mixtral's
+    routed experts (:func:`moe_ffn`, over the experts ``lp`` holds from
+    ``first_expert`` on; their 3-D products always widen int8); the
+    residual is added by the caller."""
     if cfg.n_experts:
         return moe_ffn(y, lp["router"], lp["w_gate"], lp["w_up"], lp["w_down"],
                        cfg.top_k_experts, cfg.capacity_factor, first=first_expert)
-    return qmm(torch.nn.functional.silu(qmm(y, lp["w_gate"])) * qmm(y, lp["w_up"]),
-               lp["w_down"])
+    return matmul(torch.nn.functional.silu(matmul(y, lp["w_gate"])) * matmul(y, lp["w_up"]),
+                  lp["w_down"])
 
 
 def lm_head_logits(params: Params, cfg: LlamaConfig, hidden: torch.Tensor,
@@ -591,6 +603,81 @@ def forward_ragged_impl(
                                     else adapter_ids.index_select(0, block_rows)))
     h_sel = h.reshape(n, h.shape[-1])[sel_idx]
     return lm_head_logits(params, cfg, h_sel, mesh=mesh)
+
+
+# ----------------------------------------------------------------- training
+
+
+def dense_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                           ) -> torch.Tensor:
+    """The training forward's attention, the JAX package's
+    ``dense_causal_attention``: q [B, T, n_q, hd] over k, v [B, T, n_kv, hd]
+    (GQA groups of ``n_q / n_kv``), the causal softmax materialised over [T,
+    T]. q is scaled in float32 before the product, the scores and the softmax
+    are float32, masked places hold -1e30, and the weights are cast to v's
+    dtype before P V. Plain torch ops, as JAX's is an XLA path."""
+    b, t, n_q, hd = q.shape
+    n_kv = k.shape[2]
+    scale = 1.0 / torch.sqrt(torch.tensor(float(hd), dtype=torch.float32, device=q.device))
+    qg = (q.float() * scale).reshape(b, t, n_kv, n_q // n_kv, hd)
+    scores = torch.einsum("btkgd,bskd->btkgs", qg, k.float())
+    causal = torch.ones((t, t), dtype=torch.bool, device=q.device).tril()
+    scores = scores.masked_fill(~causal[None, :, None, None, :], -1e30)
+    attn = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("btkgs,bskd->btkgd", attn, v).reshape(b, t, n_q, hd)
+
+
+def _train_layer(h: torch.Tensor, lp: dict, lpl: Optional[dict], cfg: LlamaConfig,
+                 cos: torch.Tensor, sin: torch.Tensor,
+                 adapter_ids: Optional[torch.Tensor]) -> torch.Tensor:
+    """One pre-norm attention + SwiGLU block of :func:`forward_train` (JAX's
+    ``transformer_layer``): the serving layer's pieces over dense causal
+    attention, every product through :func:`qmm_widened`."""
+    b, t = h.shape[:2]
+    hd, n_kv, n_q = cfg.head_dim, cfg.n_kv_heads, cfg.n_heads
+    x = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
+    q = with_lora(qmm_widened(x, lp["wq"]), x, lpl, "wq", adapter_ids)
+    k = with_lora(qmm_widened(x, lp["wk"]), x, lpl, "wk", adapter_ids)
+    v = with_lora(qmm_widened(x, lp["wv"]), x, lpl, "wv", adapter_ids)
+    if cfg.qkv_bias:
+        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+    q = rotate(q.reshape(b, t, n_q, hd), cos, sin)
+    k = rotate(k.reshape(b, t, n_kv, hd), cos, sin)
+    ctx = dense_causal_attention(q, k, v.reshape(b, t, n_kv, hd)).reshape(b, t, n_q * hd)
+    h = h + with_lora(qmm_widened(ctx, lp["wo"]), ctx, lpl, "wo", adapter_ids)
+    y = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
+    return h + ffn_block(y, lp, cfg, matmul=qmm_widened)
+
+
+def forward_train(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
+                  positions: Optional[torch.Tensor] = None,
+                  adapter_ids: Optional[torch.Tensor] = None,
+                  remat: bool = False) -> torch.Tensor:
+    """The training forward under autograd (the JAX package's
+    ``forward_train``): logits [B, T, vocab] float32 of ``tokens`` [B, T] at
+    ``positions`` [B, T] (default ``0..T-1``), dense causal attention, no KV
+    cache. It shares every piece with the serving forward (the norms, rope,
+    the FFN or :func:`moe_ffn`, the adapters and the LM head); its products
+    widen int8 weights (:func:`qmm_widened`) and never launch the int8
+    kernel. With a ``"lora"`` tree in ``params``, row b takes adapter
+    ``adapter_ids[b]`` (default 0, the zero adapter). ``remat`` recomputes
+    each layer in the backward (``torch.utils.checkpoint``) instead of
+    keeping its activations: the same numbers, less memory."""
+    b, t = tokens.shape
+    if positions is None:
+        positions = torch.arange(t, dtype=torch.int32, device=tokens.device)[None, :]
+    positions = positions.expand(b, t)
+    lora = params.get("lora")
+    if lora is not None and adapter_ids is None:
+        adapter_ids = torch.zeros((b,), dtype=torch.long, device=tokens.device)
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
+    h = params["embed"][tokens]
+    for i in range(cfg.n_layers):
+        lp = {name: _layer(w, i) for name, w in params["layers"].items()}
+        args = (h, lp, layer_lora(lora, i), cfg, cos, sin, adapter_ids)
+        h = (torch.utils.checkpoint.checkpoint(_train_layer, *args, use_reentrant=False)
+             if remat else _train_layer(*args))
+    return lm_head_logits(params, cfg, h)
 
 
 # ------------------------------------------------------- tensor parallelism

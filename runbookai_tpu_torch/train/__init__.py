@@ -1,1 +1,2 @@
-"""Training (the JAX package's ``train/``): not ported yet (ROADMAP.md queue 1, item 7)."""
+"""Training (the JAX package's ``train/``) on one card: ``trainer.py`` and
+``lora_trainer.py``."""

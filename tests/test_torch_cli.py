@@ -373,3 +373,144 @@ def test_cli_investigate_on_random_weights(tmp_path, monkeypatch, capsys):
                                 "--device", "cpu"], capsys)
     assert "\nroot cause:" in out and "confidence:" in out
     assert list((tmp_path / "rb" / "checkpoints" / "PD-1").glob("cp-*.json"))
+
+
+# ------------------------------------- chat, deploy and the session commands
+
+
+def test_demo_script_plays_and_renders_as_jax():
+    """The scripted demo's events and rendered lines equal the JAX package's
+    (``tests/test_surfaces.py::test_demo_script_plays_and_renders``)."""
+    from runbookai_tpu.demo.runner import render_event as j_render
+    from runbookai_tpu.demo.runner import run_demo as j_run_demo
+    from runbookai_tpu_torch.demo.runner import render_event, run_demo
+
+    want, got = j_run_demo(sleep=lambda s: None), run_demo(sleep=lambda s: None)
+    assert [(e.kind, e.data) for e in got] == [(e.kind, e.data) for e in want]
+    assert [render_event(e) for e in got] == [j_render(e) for e in want]
+    assert got[0].kind == "start" and got[-1].kind == "done"
+    assert any("ROOT CAUSE" in render_event(e) for e in got)
+
+
+def _both(argvs: list, tmp_path, monkeypatch, capsys, inputs=()) -> dict:
+    """Each CLI runs ``argvs`` in turn in a directory of its own (its own
+    ``.runbook/``), with ``inputs`` typed at its prompts; returns each one's
+    stdout, ids masked, and exit codes."""
+    out = {}
+    for pkg, main in (("jax", j_main.main), ("port", t_main.main)):
+        d = tmp_path / pkg
+        d.mkdir()
+        monkeypatch.chdir(d)
+        typed = iter(inputs)
+        monkeypatch.setattr("builtins.input", lambda *a: next(typed))
+        rcs = [main(argv) for argv in argvs]
+        out[pkg] = (rcs, _IDS.sub("<id>", capsys.readouterr().out))
+    return out
+
+
+@pytest.mark.parametrize("template", ["minimal", "simulated", "tpu"])
+def test_cli_init_status_config_print_jax_output(template, tmp_path, monkeypatch, capsys):
+    """``init``, ``status`` and ``config --set/--show`` print what the JAX
+    CLI prints and write the same config file
+    (``tests/test_surfaces.py::test_cli_init_status_config``)."""
+    out = _both([["init", "--template", template], ["init", "--template", template],
+                 ["status"], ["config", "--set", "agent.max_iterations=4"],
+                 ["config", "--set", "nonsense"], ["config", "--show"],
+                 ["init", "--template", template, "--force"]],
+                tmp_path, monkeypatch, capsys)
+    assert out["port"] == out["jax"]
+    assert out["port"][0][:2] == [0, 1] and '"max_iterations": 4' in out["port"][1]
+    assert (tmp_path / "port" / ".runbook" / "config.yaml").read_text() == \
+        (tmp_path / "jax" / ".runbook" / "config.yaml").read_text()
+
+
+def test_cli_demo_prints_jax_output(tmp_path, monkeypatch, capsys):
+    import runbookai_tpu.demo.runner as j_runner
+    import runbookai_tpu_torch.demo.runner as t_runner
+
+    for runner in (j_runner, t_runner):  # the demo's pauses, bound as a default
+        monkeypatch.setattr(runner.run_demo, "__defaults__", (None, False, lambda s: None))
+    out = _both([["demo", "--fast"]], tmp_path, monkeypatch, capsys)
+    assert out["port"] == out["jax"] and "ROOT CAUSE" in out["port"][1]
+
+
+def test_wizard_matches_jax(tmp_path):
+    """The scripted onboarding wizard, its two files and their hydration, and
+    a quick template equal the JAX package's
+    (``tests/test_surfaces.py::test_wizard_scripted_flow_and_save``,
+    ``::test_wizard_quick_template``)."""
+    import runbookai_tpu.cli.wizard as j_wizard
+    import runbookai_tpu_torch.cli.wizard as t_wizard
+
+    script = ["custom", "jax-tpu", "llama3-8b-instruct", "multi", "prod,staging",
+              "us-east-1,eu-west-1", "ecs,eks", "rds", "y", "pagerduty", "n",
+              "./docs/runbooks"]
+    got = {}
+    for name, wiz in (("jax", j_wizard), ("port", t_wizard)):
+        answers_script = iter(script)
+        answers = wiz.run_wizard(ask=lambda q, d: next(answers_script))
+        paths = wiz.save_wizard_configs(answers, tmp_path / name)
+        got[name] = (dataclasses.asdict(answers), [p.read_text() for p in paths],
+                     dataclasses.asdict(wiz.hydrate_answers(tmp_path / name)),
+                     dataclasses.asdict(wiz.run_wizard(ask=lambda q, d: "kubernetes")))
+    assert got["port"] == got["jax"]
+    assert got["port"][0]["compute_services"] == ["ecs", "eks"]
+
+
+@pytest.mark.parametrize("raw", [True, False], ids=["raw", "agent"])
+def test_cli_chat_prints_jax_output(raw, tmp_path, monkeypatch, capsys, frozen_clock):
+    """``chat`` without a prompt (the agent loop with its memory) and ``chat
+    --raw`` (direct streaming), two turns typed in, under the mock provider
+    with the simulated providers: the JAX CLI's output
+    (``tests/test_surfaces.py::test_cli_chat_raw_streams``)."""
+    config = tmp_path / "config.yaml"
+    config.write_text(yaml.safe_dump({**SIMULATED, "runbook_dir": str(tmp_path / "rb")}))
+    flags = ["--raw"] if raw else []
+    out = {}
+    for pkg, argv in (("jax", ["--config", str(config), "chat", *flags]),
+                      ("port", ["chat", *flags, "--config", str(config)])):
+        typed = iter([QUERY, "and the database?", ""])
+        monkeypatch.setattr("builtins.input", lambda *a: next(typed))
+        main = j_main.main if pkg == "jax" else t_main.main
+        out[pkg] = run_cli(main, argv, capsys)
+    assert out["port"] == out["jax"]
+    assert ("streaming model chat" if raw else "runbook chat") in out["port"]
+
+
+@pytest.mark.parametrize("dry_run", [True, False], ids=["dry_run", "deploy"])
+def test_cli_deploy_prints_jax_output(dry_run, tmp_path, monkeypatch, capsys, frozen_clock):
+    config = tmp_path / "config.yaml"
+    config.write_text(yaml.safe_dump({**SIMULATED, "runbook_dir": str(tmp_path / "rb")}))
+    monkeypatch.chdir(tmp_path)
+    args = ["deploy", "payment-api", "-e", "staging", "--version", "v2",
+            *(["--dry-run"] if dry_run else []), "--yes"]
+    want = run_cli(j_main.main, ["--config", str(config), *args], capsys)
+    got = run_cli(t_main.main, [*args, "--config", str(config), "--device", "cpu"], capsys)
+    assert got == want and got.startswith("Deploying payment-api to staging...")
+
+
+def test_cli_checkpoint_prints_jax_output(tmp_path, monkeypatch, capsys):
+    """``checkpoint list|show|delete`` over the same investigation
+    checkpoints print the JAX CLI's lines and exit codes."""
+    from runbookai_tpu_torch.agent.state_machine import InvestigationStateMachine
+    from runbookai_tpu_torch.session.checkpoint import CheckpointStore
+
+    argvs = [["checkpoint", "list"], ["checkpoint", "show", "cp-missing"],
+             ["checkpoint", "delete", "cp-missing"]]
+    out = {}
+    for pkg in ("jax", "port"):
+        d = tmp_path / pkg
+        (d / ".runbook").mkdir(parents=True)
+        m = InvestigationStateMachine(incident_id="PD-9")
+        m.add_hypothesis("pool exhaustion", priority=0.7)
+        meta = CheckpointStore(d / ".runbook" / "checkpoints").save_machine(m, label="mid")
+        monkeypatch.chdir(d)
+        main = j_main.main if pkg == "jax" else t_main.main
+        runs = argvs + [["checkpoint", "list", "--investigation", "PD-9"],
+                        ["checkpoint", "show", meta.checkpoint_id],
+                        ["checkpoint", "delete", meta.checkpoint_id], ["checkpoint", "list"]]
+        rcs = [main(argv) for argv in runs]
+        text = capsys.readouterr().out.replace(meta.checkpoint_id, "<cp>")
+        out[pkg] = (rcs, re.sub(r'"(created_at|timestamp|saved_at)": [0-9.e+]+', "<t>", text))
+    assert out["port"] == out["jax"]
+    assert out["port"][0] == [0, 1, 1, 0, 0, 0, 0] and "deleted" in out["port"][1]

@@ -421,13 +421,6 @@ def test_hot_load_recaptures_and_serves(weights, jax_streams):
         _jcore(jparams, jreg), JRequest, JSampling, ["late"], prompt=prompt)[0]
 
 
-def test_lora_training_write_back_is_unported():
-    from runbookai_tpu_torch.train.lora_trainer import LoraTrainer
-
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        LoraTrainer(CFG, {}, None, "adapter0")
-
-
 # -------------------------------------------------------------------- HTTP
 
 

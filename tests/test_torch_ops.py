@@ -268,14 +268,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     bad = {str(f.relative_to(ROOT)): [n for n in _imported_modules(f) if _forbidden(n)]
            for f in files}
     assert {f: n for f, n in bad.items() if n} == {}
-    # The eval suite, the simulator, the server's, LoRA's, the draft's and
-    # the MoE op's modules are among them.
+    # The eval suite, the simulator, the server's, LoRA's, the draft's, the
+    # MoE op's, the trainers', the checkpoints' and the CLI's modules are
+    # among them.
     assert {f"runbookai_tpu_torch/{m}.py" for m in (
         "evalsuite/scoring", "evalsuite/converters", "evalsuite/runner", "evalsuite/run_all",
         "simulate/__init__", "simulate/generator", "simulate/provision",
         "server/openai_api", "engine/flight_recorder", "engine/memory_plan",
         "utils/trace", "sched/__init__", "models/lora", "engine/draft",
-        "train/lora_trainer", "ops/moe")} <= set(bad)
+        "train/lora_trainer", "ops/moe", "train/trainer", "models/checkpoint",
+        "cli/wizard", "demo/data", "demo/runner")} <= set(bad)
     # And at run time: importing every module of the port loads neither.
     mods = [".".join(f.relative_to(ROOT).with_suffix("").parts)
             for f in files if f.name not in ("__main__.py", "chip_smoke.py")]
