@@ -236,14 +236,17 @@ phases (12 and 16's page split and tp=8) run at 4 of the 32 layers
    print ``knowledge_retrieved``. Each first prompt of ``ask`` is counted
    before it is served: phase 18's question with aws's tools, then with
    none, else a how-to question (answered from the knowledge alone, no
-   tool schemas), the first to leave its 256 tokens inside 8,192.
+   tool schemas), the first to leave its 256 tokens inside 8,192. Then
+   ``agent_ask_knowledge_32k``: phase 18's question with aws's tools (the
+   tool loop) on llama3.1-8b-instruct (``llm.max_seq_len`` 32,768) at the
+   same depth, graphs on and off, equal.
    ``--knowledge`` runs the build and this phase alone.
 20. (after phase 19) the eval suite through the port's CLI, in this
    process, as phase 18 runs its commands (``llm.provider: jax-tpu``,
    llama3-8b-instruct at full width, bf16, random weights from seed 0,
    byte tokenizer, phase 15's schema limits, 512 new tokens a call,
    ``time.time`` pinned). ``eval_simulated``: ``simulate eval --n 8 --seed
-   0 --concurrency 4`` at all 32 layers, graphs on: eight generated
+   0 --concurrency 4`` at CUT_LAYERS of the 32 layers, graphs on: eight generated
    scenarios, four investigations at a time on the one engine, each at
    ``run_live``'s own budgets (20 iterations, the state machine's
    defaults). It fails unless the command exits 0 with no engine crash,
@@ -376,9 +379,47 @@ phases (12 and 16's page split and tp=8) run at 4 of the 32 layers
    two requests, the second's prompt carrying the first turn. The serving
    runs must launch K1 and K2; the kernels' line gives their launches
    (``train_launches``). ``--train`` runs the build and this phase alone.
+25. Long contexts and llama3-70b-instruct on one card (after phase 5).
+   ``long_kernel``: K1 (bf16 and fp8 pools), K4 (the tp=16 call's heads on
+   PG page shards), K2 (bf16 and fp8; the last 512-token chunk of a 32k
+   prompt) and W1 (a decode row at 32,767 keys; that last chunk as its
+   prefill row beside decode rows, bf16 and fp8) over 2,049-column tables
+   (max_seq_len 32,768) and a 4,096-page pool, decode rows of up to 32,767
+   keys. ``group8_kernel``: K1, K3, K2, K2-int8 and W1 at the 70B's 64/8
+   heads. ``qmm_70b_kernel``: K5 at the 70B's four (K, N) shapes and M = 8
+   and 64. Each against its plain version with TOL, timed beside its bound
+   and SDPA's or cuBLAS's time. ``long_serve``: llama3.1-8b-instruct at 32
+   layers through ``TorchCudaClient.from_config`` (bf16 weights, an fp8
+   pool, ``llm.max_seq_len`` 32,768, ``llm.num_pages`` 4,096) serves a
+   32,000-token prompt with phase 7's five, 32 greedy tokens each: step
+   graphs on, off (equal streams), mixed dispatch on and mixed with graphs
+   off (equal streams); the long request's TTFT, decode seconds a step,
+   peak memory, K1/K2/W1 launches, and its first token's logits on the
+   split and the mixed path (graphs off). ``long_split``: the long request alone
+   at CUT_LAYERS on the unsharded engine and on the tp=16 page split (both
+   page shards in use), graphs on and off: equal streams. ``big_serve``:
+   llama3-70b-instruct, int8 weights at all 80 layers drawn on the card,
+   through ``from_config`` over a bf16 pool sized from ``plan_serving``'s
+   budget: weight bytes equal to the plan's, phase 7's five requests
+   graphs on and off (equal streams), tokens a second, decode seconds a
+   step, TTFT, peak memory, K5/K1/K2 launches and a profiled decode window
+   (K5's device time and the rest). ``--long`` runs the build and this
+   phase alone.
+
+A ``profiler_clock`` line at the start and at the end of the run: eight
+launches of one kernel under torch.profiler, without and with 100 ms of
+padding, the device events each window kept and how far each kernel's
+start lies after its host op's. Every profiled window that splits device
+time by kernel class fails when it kept fewer of the port's kernels than
+the wrappers launched in it.
 
 Then it prints the kernels' line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --profiler-clock SECONDS
+
+runs instead that probe every PROBE_EVERY_S seconds for SECONDS, the card
+busy with bf16 matmuls in between, a line a probe (no kernel is built).
 
     python3 chip_smoke.py --serve-ab DIR [bfloat16] [int8] [mixed]
 
@@ -429,6 +470,7 @@ one process: idle share and wall of each run, in
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import faulthandler
 import json
 import subprocess
@@ -516,28 +558,109 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+# torch.profiler keeps only the device events that fall inside its window
+# by the host's clock, and the device's clock, as CUPTI reports it, falls
+# behind the host's as the process ages: kernels seemed to start 1.14 ms
+# before their host ops 1,000 s into a run (0.01 ms at its start; the
+# ``profiler_clock`` lines, H100 at 700 W), and a window whose first
+# kernels came sooner than that after its start kept none of them. So each
+# window opens and closes with this much host time around its work.
+PROFILE_PAD_S = 0.01
+
+
+@contextlib.contextmanager
+def profiled():
+    """torch.profiler over the block (CPU and CUDA activities), padded by
+    PROFILE_PAD_S before and after it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        yield prof
+        time.sleep(PROFILE_PAD_S)
+
+
 def device_ms(fn, iters: int, warmup: int = 2):
     """Device time per call of ``fn``: the kernels it launches, summed by
     torch.profiler over ``iters`` calls, without the host's gaps between
     them (for calls short enough that the host's launch rate sets the
-    CUDA-event time); None (not measured) when three windows in a row
-    record no device event."""
+    CUDA-event time); None (not measured) when three windows in a row kept
+    fewer device kernels than calls."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a window in which the profiler recorded nothing is taken again
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    for _ in range(3):  # a window that lost events is taken again
+        with profiled() as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        total_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA)
-        if total_us:
-            return total_us / iters / 1e3
+        kernels = [e.time_range.elapsed_us() for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.is_user_annotation]
+        if len(kernels) >= iters:
+            return sum(kernels) / iters / 1e3
     return None
+
+
+PROBE_CALLS = 8  # launches of the profiler's clock probe
+
+
+def profiler_clock(torch, pad_s: float = 0.0) -> dict:
+    """The profiler's two clocks on a known window: PROBE_CALLS launches of
+    one elementwise kernel under torch.profiler, with ``pad_s`` of host
+    sleep inside the window before and after them. Returns the device events
+    the window kept, and for each kept kernel how far its start (the device
+    clock, as CUPTI reports it) lies after the start of the host op that
+    launched it (the host clock), in microseconds: a few where the clocks
+    agree."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.zeros(1 << 16, device=DEVICE)
+    x.add_(1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad_s)
+        for _ in range(PROBE_CALLS):
+            x.add_(1)
+        torch.cuda.synchronize()
+        time.sleep(pad_s)
+    events = prof.events()
+    ops = sorted(e.time_range.start for e in events
+                 if e.device_type == torch.autograd.DeviceType.CPU and e.name == "aten::add_")
+    kernels = sorted(e.time_range.start for e in events
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and not e.is_user_annotation)
+    after = [k - o for k, o in zip(kernels, ops)] if len(kernels) == len(ops) else None
+    return {"process_s": time.perf_counter() - _START, "pad_ms": pad_s * 1e3,
+            "calls": PROBE_CALLS, "host_ops": len(ops), "device_events": len(kernels),
+            "kernel_after_op_us": after}
+
+
+def phase_profiler_clock(torch, what: str) -> dict:
+    """The clock probe (:func:`profiler_clock`) without padding and with
+    100 ms of it."""
+    return {"phase": "profiler_clock", "at": what, "unpadded": profiler_clock(torch),
+            "padded": profiler_clock(torch, 0.1)}
+
+
+def profiler_clock_run(torch, seconds: float) -> int:
+    """The clock probe every PROBE_EVERY_S seconds for ``seconds``, the card
+    kept busy with bf16 matmuls in between; a line a probe."""
+    a = torch.randn((8192, 8192), device=DEVICE, dtype=torch.bfloat16)
+    end = time.perf_counter() + seconds
+    while time.perf_counter() < end:
+        emit(phase_profiler_clock(torch, "run"))
+        busy_until = time.perf_counter() + PROBE_EVERY_S
+        while time.perf_counter() < busy_until:
+            for _ in range(20):
+                a = (a @ a).clamp_(-1, 1)
+            torch.cuda.synchronize()
+    return 0
+
+
+PROBE_EVERY_S = 3
 
 
 def graph_ms(fn, iters: int = 10) -> float:
@@ -674,17 +797,19 @@ def drop_last_page(pa, q, k, v, tables, ctx, q_start, ref, dtype_name: str,
             "rows": len(live)}
 
 
-def make_pool(gen, dtype, ctx_lens, device, n_kv: int = N_KV, hd: int = HD):
-    """Random pools, and tables whose live pages are distinct per sequence;
-    entries past ctx point at random pages, the trash column at page 0."""
+def make_pool(gen, dtype, ctx_lens, device, n_kv: int = N_KV, hd: int = HD,
+              columns: int = MAX_PAGES, pages: int = NUM_PAGES):
+    """Random pools of ``pages`` pages, and tables of ``columns`` columns and
+    the trash column whose live pages are distinct per sequence; entries
+    past ctx point at random pages, the trash column at page 0."""
     import torch
 
-    k = torch.randn((NUM_PAGES * PS, n_kv, hd), generator=gen, device=device).to(dtype)
-    v = torch.randn((NUM_PAGES * PS, n_kv, hd), generator=gen, device=device).to(dtype)
-    tables = torch.randint(1, NUM_PAGES, (len(ctx_lens), MAX_PAGES + 1),
+    k = torch.randn((pages * PS, n_kv, hd), generator=gen, device=device).to(dtype)
+    v = torch.randn((pages * PS, n_kv, hd), generator=gen, device=device).to(dtype)
+    tables = torch.randint(1, pages, (len(ctx_lens), columns + 1),
                            generator=gen, device=device, dtype=torch.int32)
-    tables[:, MAX_PAGES] = 0
-    perm = torch.randperm(NUM_PAGES - 1, generator=gen, device=device) + 1
+    tables[:, columns] = 0
+    perm = torch.randperm(pages - 1, generator=gen, device=device) + 1
     nxt = 0
     for i, ctx in enumerate(ctx_lens):
         need = -(-ctx // PS)
@@ -744,12 +869,12 @@ def phase_build() -> dict:
             "seconds": time.perf_counter() - t0}
 
 
-def decode_case(pa, torch, q, k, v, tables, ctx, name: str) -> dict:
+def decode_case(pa, torch, q, k, v, tables, ctx, name: str, gate_drop: bool = True) -> dict:
     """Decode kernel against its plain version on one pool (a tensor or an
-    int8 tuple), the dropped-last-page check, and its times (CUDA events
-    over back-to-back calls and, L2 cold, one call at a time; profiler
-    device time; host time a call), its route and split count, and its
-    bound."""
+    int8 tuple), the dropped-last-page check (gated with ``gate_drop``), and
+    its times (CUDA events over back-to-back calls and, L2 cold, one call at
+    a time; profiler device time; host time a call), its route and split
+    count, and its bound."""
     import torch.nn.functional as F
 
     dev = q.device
@@ -769,7 +894,7 @@ def decode_case(pa, torch, q, k, v, tables, ctx, name: str) -> dict:
     if any(bool(out[i].abs().max() != 0) for i, c in enumerate(ctx_l) if c == 0):
         raise AssertionError("decode: a ctx-0 row must be zeros")
     wrong = drop_last_page(pa, q[:, None], k, v, tables, ctx, None,
-                           ref[:, None], name)
+                           ref[:, None], name, gate=gate_drop)
     ms = time_ms(call)
     plain_ms = time_ms(lambda: pa.plain_paged_attention(
         q[:, None], k, v, tables, ctx, None, PS), iters=3, warmup=1)
@@ -840,17 +965,23 @@ def phase_decode(pa, torch, int8: bool = False) -> dict:
 SERVED_CTX = [83, 150, 266, 397, 512, 640, 800, 942]
 
 
-def chunk_inputs(torch, dev, gen, dtype, kind, geo=(N_Q, N_KV, HD)):
-    """(q, k, v, tables, ctx, positions, real tokens per row). ``tp8_shard``
+def chunk_inputs(torch, dev, gen, dtype, kind, geo=(N_Q, N_KV, HD), columns: int = MAX_PAGES,
+                 pages: int = NUM_PAGES):
+    """(q, k, v, tables, ctx, positions, real tokens per row) over
+    :func:`make_pool`'s ``columns`` and ``pages``. ``tp8_shard``
     is the verify input cut to one head shard of tp=8: 4 query heads over
     1 kv head. ``prefill_one_row`` is the engine's prefill of a single row
     (padded to 512 tokens): 256 blocks of 64 rows, so ``chunk_plan`` splits
-    it in two; at offset 4096 both splits hold keys, and causal rows."""
-    trash = MAX_PAGES * PS
+    it in two; at offset 4096 both splits hold keys, and causal rows.
+    ``prefill_32k`` is the same row as the last chunk of a 32k prompt
+    (tables of LONG_TABLE columns)."""
+    trash = columns * PS
     if kind == "prefill":  # 4 x 512 tokens at offsets 0 and 512
         t, starts, real = 512, [0, 512, 0, 512], [512] * 4
     elif kind == "prefill_one_row":  # 512 tokens at offset 4096: ctx 4608, 288 columns
         t, starts, real = 512, [4096], [512]
+    elif kind == "prefill_32k":  # a 32k prompt's last chunk: ctx 32,768 (phase 25)
+        t, starts, real = 512, [LONG_CHUNK_START], [512]
     elif kind in ("verify", "tp8_shard", "verify_served"):  # T=8 from ctx-1
         t = 8
         before = (SERVED_CTX if kind == "verify_served"
@@ -860,7 +991,7 @@ def chunk_inputs(torch, dev, gen, dtype, kind, geo=(N_Q, N_KV, HD)):
         t, starts, real = 512, [0, 512, trash, 1024], [100, 512, 0, 37]
     ctx_lens = [s + n if n else 1 for s, n in zip(starts, real)]
     n_q, n_kv, hd = geo  # query heads, kv heads, head_dim
-    k, v, tables = make_pool(gen, dtype, ctx_lens, dev, n_kv, hd)
+    k, v, tables = make_pool(gen, dtype, ctx_lens, dev, n_kv, hd, columns, pages)
     pos = torch.full((len(starts), t), trash, dtype=torch.int32, device=dev)
     for i, (s, n) in enumerate(zip(starts, real)):
         if n:
@@ -1029,7 +1160,8 @@ MIX_PF_TOKENS = 512
 MIX_PF_START = 4096  # the prefill row's offset in the ragged inputs
 MIX_ROWS = B + 4 + 1
 # Ragged inputs: decode contexts per slot (None = a free slot, whose block is
-# a pad block of the null row) and the prefill row's tokens at offset 4096.
+# a pad block of the null row) and the prefill row's tokens at offset 4096
+# (at a third entry's offset where there is one).
 # "long" ends its prefill region with a pad block (500 tokens in 63 blocks).
 RAGGED_KINDS = {"served": (SERVED_CTX, 512),
                 "long": ([1, 16, 17, 1000, 8191, 300, 4097, None], 500)}
@@ -1038,14 +1170,17 @@ RAGGED_KINDS = {"served": (SERVED_CTX, 512),
 RAGGED_GEOMETRIES = {"group7": (28, 4, 128), "hd64": HD64}
 
 
-def ragged_inputs(torch, dev, gen, dtype, kind, n_q=N_Q, n_kv=N_KV, hd=HD):
-    """A flat mixed batch in the engine's layout: (q [N, n_q, hd], k, v,
-    tables [R, P + 1], ctx [R], positions [N], row_ids [N], the indices of
-    the tokens of pad blocks)."""
-    dec_ctx, pf_len = RAGGED_KINDS[kind]
-    trash, null, pf_start = MAX_PAGES * PS, MIX_ROWS - 1, MIX_PF_START
+def ragged_inputs(torch, dev, gen, dtype, kind, n_q=N_Q, n_kv=N_KV, hd=HD,
+                  columns: int = MAX_PAGES, pages: int = NUM_PAGES):
+    """A flat mixed batch in the engine's layout over :func:`make_pool`'s
+    ``columns`` and ``pages``: (q [N, n_q, hd], k, v, tables [R, P + 1],
+    ctx [R], positions [N], row_ids [N], the indices of the tokens of pad
+    blocks). The prefill row starts at MIX_PF_START, or where the kind
+    says."""
+    dec_ctx, pf_len, *start = {**RAGGED_KINDS, **RAGGED_LONG_KINDS}[kind]
+    trash, null, pf_start = columns * PS, MIX_ROWS - 1, (start or [MIX_PF_START])[0]
     ctx_rows = [c or 0 for c in dec_ctx] + [pf_start + pf_len] + [0] * (MIX_ROWS - B - 1)
-    k, v, tables = make_pool(gen, dtype, ctx_rows, dev, n_kv, hd)
+    k, v, tables = make_pool(gen, dtype, ctx_rows, dev, n_kv, hd, columns, pages)
     n = B * RQ + MIX_PF_TOKENS
     pos = torch.full((n,), trash, dtype=torch.int32, device=dev)
     rows = torch.full((n,), null, dtype=torch.int32, device=dev)
@@ -1889,16 +2024,14 @@ def phase_forward_tp(torch) -> dict:
 def kernel_names(torch, fn, calls: int) -> list[str]:
     """The device kernels (and copies) that ``calls`` calls of ``fn`` run,
     by torch.profiler, after one call outside it. Every caller's ``fn``
-    launches at least one kernel a call, so a profile that recorded fewer
-    device events than ``calls`` (the profiler here sometimes drops a whole
-    window, or some of its events) is taken again, up to five times; the
+    launches at least one kernel a call, so a profile that kept fewer
+    device events than ``calls`` is taken again, up to five times; the
     callers then check the names and their count."""
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     for _ in range(5):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profiled() as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
@@ -1941,10 +2074,11 @@ def qmm_case(qm, torch, x, q, s, deq, name: str) -> dict:
     dropped-K-slice check, one launch and no allocation but the output per
     call, and kernel, plain and library (``torch.matmul`` by ``deq``, the
     weights dequantized to bf16) device times, each call on the next of the
-    32 layer slices, so that every timed call reads its weights from outside
-    the 50 MB L2 (its cold time); ``events_ms`` is the kernel's CUDA-event
-    time over back-to-back calls, which the host's launch rate can set, and
-    ``graph_ms`` the same 32 rotating calls captured in one CUDA graph."""
+    layer slices of ``q`` and ``s`` (32 in phase 5), so that every timed
+    call reads its weights from outside the 50 MB L2 (its cold time);
+    ``events_ms`` is the kernel's CUDA-event time over back-to-back calls,
+    which the host's launch rate can set, and ``graph_ms`` the same rotating
+    calls captured in one CUDA graph."""
     m, k = x.shape
     n = q.shape[2]
     out = qm.qmm_int8(x, q[0], s[0])
@@ -1960,11 +2094,13 @@ def qmm_case(qm, torch, x, q, s, deq, name: str) -> dict:
         raise AssertionError(f"qmm [{m}, {k}] @ [{k}, {n}]: the tolerance accepts a "
                              f"result with the last {bk} rows of K dropped")
 
+    layers = q.shape[0]
+
     def rotating(fn, *stacked):
         layer = [0]
 
         def call():
-            i = layer[0] = (layer[0] + 1) % QMM_LAYERS
+            i = layer[0] = (layer[0] + 1) % layers
             return fn(x, *(w[i] for w in stacked))
         return call
 
@@ -1972,12 +2108,12 @@ def qmm_case(qm, torch, x, q, s, deq, name: str) -> dict:
                                2.0 * m * k * n, name)
     plan = qm.qmm_plan(m, k, n)
     return {"max_abs_err": err,
-            "ms": device_ms(rotating(qm.qmm_int8, q, s), iters=2 * QMM_LAYERS),
-            "events_ms": time_ms(rotating(qm.qmm_int8, q, s), iters=4 * QMM_LAYERS,
-                                 warmup=QMM_LAYERS),
-            "graph_ms": graph_ms(rotating(qm.qmm_int8, q, s), iters=QMM_LAYERS),
+            "ms": device_ms(rotating(qm.qmm_int8, q, s), iters=2 * layers),
+            "events_ms": time_ms(rotating(qm.qmm_int8, q, s), iters=4 * layers,
+                                 warmup=layers),
+            "graph_ms": graph_ms(rotating(qm.qmm_int8, q, s), iters=layers),
             "plain_ms": device_ms(rotating(qm.plain_qmm_int8, q, s), iters=8),
-            "library_ms": device_ms(rotating(torch.matmul, deq), iters=2 * QMM_LAYERS),
+            "library_ms": device_ms(rotating(torch.matmul, deq), iters=2 * layers),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "wrong_min_abs_err": min(float(diff[i].max()) for i in range(m)),
             "splits": plan.splits, "k_slice": plan.k_slice, "tile_n": plan.tile_n, **launch}
@@ -2579,18 +2715,34 @@ def kernel_class(name: str, int8_pools: bool = False, fp8_pools: bool = False) -
     return "other"
 
 
-def device_time_by_class(torch, prof, int8_pools: bool = False, fp8_pools: bool = False):
-    """A profile's device time: {class: [ms, kernels]} and {kernel name: ms}."""
+OTHER_CLASSES = ("matmul", "other")  # kernel classes that are not the port's
+
+
+def device_time_by_class(torch, prof, launched: dict, what: str, int8_pools: bool = False,
+                         fp8_pools: bool = False):
+    """A profile's device time: {class: [ms, kernels]} and {kernel name: ms}.
+    ``launched`` holds the wrappers' launch counts over the window
+    (``counts()``); a window that kept no device kernel, or fewer of the
+    port's kernels than the wrappers launched in it, lost events, and
+    fails. (Replays of step graphs launch kernels no wrapper counts, so
+    there the check is a floor.)"""
     classes: dict[str, list] = {}
     by_name: dict[str, float] = {}
     for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        # GPU-side user annotations (the engine's ``annotate`` ranges) span
+        # kernels; they are not kernels themselves.
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.is_user_annotation:
             continue
         name, ms = e.name, e.time_range.elapsed_us() / 1e3
         acc = classes.setdefault(kernel_class(name, int8_pools, fp8_pools), [0.0, 0])
         acc[0] += ms
         acc[1] += 1
         by_name[name] = by_name.get(name, 0.0) + ms
+    kept = sum(n for cls, (_, n) in classes.items() if cls not in OTHER_CLASSES)
+    if not classes or kept < sum(launched.values()):
+        raise AssertionError(f"{what}: the profiler kept {kept} of the port's kernels "
+                             f"({sum(n for _, n in classes.values())} in all), the "
+                             f"wrappers launched {sum(launched.values())}: events lost")
     return classes, by_name
 
 
@@ -2699,7 +2851,6 @@ def decode_window(torch, client) -> dict:
     request decodes, ``DECODE_WINDOW_STEPS`` steps with speculation off
     under the profiler with :func:`decode_ranges`, then the rest
     unprofiled; the runtime calls of :func:`launch_calls`."""
-    from torch.profiler import ProfilerActivity, profile
 
     from runbookai_tpu_torch.engine.request import EngineRequest
 
@@ -2716,7 +2867,7 @@ def decode_window(torch, client) -> dict:
     torch.cuda.synchronize()
     restore = decode_ranges()
     try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profiled() as prof:
             for _ in range(DECODE_WINDOW_STEPS):
                 core.step()
             torch.cuda.synchronize()
@@ -2739,7 +2890,6 @@ def prefill_window(torch, client, mixed: bool = False) -> dict:
     or, with ``mixed``, a mixed one (the first request decodes before the
     rest arrive, so that prompts and decodes share steps); then the rest
     unprofiled."""
-    from torch.profiler import ProfilerActivity, profile
 
     from runbookai_tpu_torch.engine.request import EngineRequest
 
@@ -2755,7 +2905,7 @@ def prefill_window(torch, client, mixed: bool = False) -> dict:
     torch.cuda.synchronize()
     restore = decode_ranges()
     try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profiled() as prof:
             for _ in range(PREFILL_WINDOW_STEPS):
                 if not (core.waiting or core.prefilling):
                     break
@@ -2794,20 +2944,20 @@ def phase_profile(torch, weights: str = "bfloat16", overlap: bool = True,
     device's idle share of the serving wall time (profiler on); then the
     runtime calls a decode forward and a decode step, in a window of the
     same client (:func:`decode_window`). ``layers`` cuts the depth."""
-    from torch.profiler import ProfilerActivity, profile
 
     free_device(torch)
     client = build_client(torch, weights, overlap, graphs, layers)
     torch.cuda.synchronize()
     texts = prompts()
     reset_counts()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         resps, wall = asyncio.run(_serve_and_stop(client, texts))
         torch.cuda.synchronize()
     launched = counts()
     check_served(client, resps, len(texts))
     fp8 = weights.endswith("fp8")
-    classes, by_name = device_time_by_class(torch, prof, weights == "int8", fp8)
+    classes, by_name = device_time_by_class(torch, prof, launched, f"{weights} profile",
+                                            weights == "int8", fp8)
     # The routes: bf16 chunk and decode calls on the tensor-core kernels,
     # over bf16, int8 and fp8 pools, and K5 on its tensor-core kernels;
     # page-split chunk and decode partials too; no call on a removed
@@ -3225,7 +3375,6 @@ def phase_guided_profile(torch, layers: Optional[int] = None) -> dict:
     requests are those ``complete()`` and ``engine.generate`` submit. Fails
     unless decode calls ran the tensor-core kernel, and if a removed
     instantiation ran. ``layers`` cuts the depth."""
-    from torch.profiler import ProfilerActivity, profile
 
     from runbookai_tpu_torch.agent.llm_parser import SCHEMA_MODELS
     from runbookai_tpu_torch.engine.request import EngineRequest
@@ -3243,19 +3392,21 @@ def phase_guided_profile(torch, layers: Optional[int] = None) -> dict:
         core.step()
     torch.cuda.synchronize()
     before = dict(core.metrics)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    reset_counts()
+    with profiled() as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             core.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    launched = counts()
     window = {k: core.metrics[k] - before[k] for k in (
         "decode_dispatches", "decode_tokens", "prefill_steps", "prefill_tokens")}
     core.run_until_idle()
     asyncio.run(client.shutdown())
     if any(r.finish_reason is None or r.finish_reason.value == "aborted" for r in reqs):
         raise AssertionError("guided profile: a request did not finish")
-    classes, by_name = device_time_by_class(torch, prof)
+    classes, by_name = device_time_by_class(torch, prof, launched, "guided profile")
     old = [name for name in by_name if removed_bf16(name)]
     if old or not any("decode_attention_mma_kernel<" in name
                       and kernel_class(name) == "decode_attention" for name in by_name):
@@ -3568,19 +3719,22 @@ AGENT_ARGV = {
 
 
 def agent_config(tmp: Path, cmd: str, kb: Optional[dict] = None,
-                 providers: Optional[dict] = None, provider: str = "jax-tpu") -> Path:
-    """The phase's ``config.yaml``: the 8B from seed 0 in bf16 on the
-    serving engine (``llm.provider: jax-tpu``), byte tokenizer, simulated
-    providers (``providers``, else ``AGENT_PROVIDERS[cmd]``), the e2e test's
-    budgets, everything under ``tmp``. With ``kb`` (phase 19), its
-    ``knowledge`` block and its service graph as
-    ``<runbook_dir>/service-graph.json``."""
+                 providers: Optional[dict] = None, provider: str = "jax-tpu",
+                 model: str = ENGINE_MODEL, max_seq_len: Optional[int] = None) -> Path:
+    """The phase's ``config.yaml``: ``model`` (the 8B) from seed 0 in bf16
+    on the serving engine (``llm.provider: jax-tpu``; ``llm.max_seq_len``
+    where given), byte tokenizer, simulated providers (``providers``, else
+    ``AGENT_PROVIDERS[cmd]``), the e2e test's budgets, everything under
+    ``tmp``. With ``kb`` (phase 19), its ``knowledge`` block and its service
+    graph as ``<runbook_dir>/service-graph.json``."""
     import yaml
 
     max_new = AGENT_ASK_MAX_NEW if cmd == "ask" else AGENT_MAX_NEW
+    llm = {"provider": provider, "model": model, "max_new_tokens": max_new}
+    if max_seq_len:
+        llm["max_seq_len"] = max_seq_len
     doc = {**(AGENT_PROVIDERS[cmd] if providers is None else providers),
-           "runbook_dir": str(tmp / "rb"), "agent": AGENT_BUDGETS,
-           "llm": {"provider": provider, "model": ENGINE_MODEL, "max_new_tokens": max_new}}
+           "runbook_dir": str(tmp / "rb"), "agent": AGENT_BUDGETS, "llm": llm}
     if kb is not None:
         doc["knowledge"] = kb["knowledge"]
         (tmp / "rb").mkdir(parents=True, exist_ok=True)
@@ -3606,7 +3760,9 @@ def agent_document(text: str, name: str, req) -> dict:
     return {"bytes": len(text.encode()), "trailing_whitespace": len(text.lstrip()) - end}
 
 
-def phase_agent(torch, cmd: str, graphs: bool = True, kb: Optional[dict] = None) -> dict:
+def phase_agent(torch, cmd: str, graphs: bool = True, kb: Optional[dict] = None,
+                model: str = ENGINE_MODEL, max_seq_len: Optional[int] = None,
+                tag: str = "") -> dict:
     """``python -m runbookai_tpu_torch <cmd> ... --yes`` in this process
     (``__main__.main(argv)``) on the phase's config: the client is
     ``TorchCudaClient.from_config``'s at ``AGENT_LAYERS`` of the 8B's
@@ -3623,8 +3779,9 @@ def phase_agent(torch, cmd: str, graphs: bool = True, kb: Optional[dict] = None)
     providers), the command runs over that knowledge base, and it also
     fails unless ``investigate``'s remediation prompt carries ids of
     retrieved documents, or ``ask`` printed its ``knowledge_retrieved``
-    event."""
-    import contextlib
+    event. ``model`` and ``max_seq_len`` set the config's ``llm.model`` and
+    ``llm.max_seq_len`` (the model cut to ``AGENT_LAYERS``); ``tag`` ends the
+    phase's name."""
     import dataclasses
     import io
     import tempfile
@@ -3652,12 +3809,13 @@ def phase_agent(torch, cmd: str, graphs: bool = True, kb: Optional[dict] = None)
         return build(cls, *args, **kw, schema_limits=SchemaLimits(**GUIDED_LIMITS),
                      engine={"step_graphs": graphs})
 
-    cfg = llama.get_config(ENGINE_MODEL)
-    depth = {ENGINE_MODEL: dataclasses.replace(cfg, n_layers=AGENT_LAYERS)}
+    cfg = llama.get_config(model)
+    depth = {model: dataclasses.replace(cfg, n_layers=AGENT_LAYERS)}
 
     out = io.StringIO()
     with tempfile.TemporaryDirectory() as tmp:
-        config = agent_config(Path(tmp), cmd, kb, kb and kb["providers"])
+        config = agent_config(Path(tmp), cmd, kb, kb and kb["providers"], model=model,
+                              max_seq_len=max_seq_len)
         argv = [*(kb["argv"] if kb else AGENT_ARGV[cmd]), "--yes", "--device", DEVICE,
                 "--config", str(config)]
         with mock.patch.object(TorchCudaClient, "from_config",
@@ -3711,13 +3869,15 @@ def phase_agent(torch, cmd: str, graphs: bool = True, kb: Optional[dict] = None)
         raise AssertionError(f"ask: its first call was not served: {calls[:1]}")
     guided_tokens = sum(c["completion_tokens"] for c in guided)
     guided_wall = sum(c["wall_s"] for c in guided)
-    name = f"agent_{cmd}" + ("_knowledge" if kb else "") + ("" if graphs else "_graphs_off")
+    name = (f"agent_{cmd}" + ("_knowledge" if kb else "") + tag
+            + ("" if graphs else "_graphs_off"))
     extra = {}
     if kb is not None:
         extra = knowledge_in_run(cmd, client, printed, kb, snapshot)
     (OUT_DIR / f"{name}.txt").write_text(printed)
     return {"phase": name, **extra,
-            "step_graphs": graphs, "model": ENGINE_MODEL, "layers": AGENT_LAYERS,
+            "step_graphs": graphs, "model": model, "layers": AGENT_LAYERS,
+            "max_seq_len": core.ecfg.max_seq_len,
             "schema_limits": GUIDED_LIMITS, "argv": argv[:-1],
             "providers": AGENT_PROVIDERS[cmd] if kb is None else kb["providers"],
             "budgets": AGENT_BUDGETS,
@@ -4243,7 +4403,10 @@ def knowledge_phases(torch) -> None:
     tools, then with none; where neither first prompt leaves its budget
     inside the 8B's context (the retrieved knowledge block alone is up to
     6,000 byte tokens), it asks ``KNOWLEDGE_HOWTO``, which the agent answers
-    on its knowledge-only path (no tool schemas). Every count is kept."""
+    on its knowledge-only path (no tool schemas). Every count is kept. Then
+    ``ask`` asks phase 18's question with aws's tools (the tool loop) on
+    llama3.1-8b-instruct at ``llm.max_seq_len`` LONG_SEQ, whose context
+    holds it, graphs on and off."""
     import tempfile
 
     emit(phase_knowledge_encode(torch))
@@ -4264,15 +4427,31 @@ def knowledge_phases(torch) -> None:
                         break
                 else:
                     raise AssertionError(f"ask: no first prompt fits the context: {tried}")
-            on = phase_agent(torch, cmd, kb=kb)
-            on["first_prompt_tokens_tried"] = tried
-            emit(agent_line(on))
-            off = phase_agent(torch, cmd, graphs=False, kb=kb)
-            for key in ("printed", "documents", "checkpoint"):
-                if on[key] != off[key]:
-                    raise AssertionError(f"agent {cmd} over knowledge: graphs off gave "
-                                         f"another {key}")
-            emit(agent_line({**off, "same_as_graphs": True}))
+            agent_pair(torch, cmd, kb, first_prompt_tokens_tried=tried)
+        # The tool-loop question on the long deployment's model and context
+        # (phase 25): llm.model llama3.1-8b-instruct, llm.max_seq_len 32,768.
+        kb.update(argv=AGENT_ARGV["ask"], providers=AGENT_PROVIDERS["ask"])
+        n = first_prompt_tokens(AGENT_ARGV["ask"][1], kb, AGENT_PROVIDERS["ask"])
+        if n + AGENT_ASK_MAX_NEW > LONG_SEQ:
+            raise AssertionError(f"ask: its first prompt of {n} tokens does not fit {LONG_SEQ}")
+        agent_pair(torch, "ask", kb, model=LONG_MODEL, max_seq_len=LONG_SEQ, tag="_32k",
+                   first_prompt_tokens=n)
+
+
+def agent_pair(torch, cmd: str, kb: dict, model: str = ENGINE_MODEL,
+               max_seq_len: Optional[int] = None, tag: str = "", **line) -> None:
+    """:func:`phase_agent` over the knowledge base with the step graphs on,
+    then off: the same output, documents and checkpoint; ``line`` joins the
+    first run's line."""
+    kw = dict(kb=kb, model=model, max_seq_len=max_seq_len, tag=tag)
+    on = phase_agent(torch, cmd, **kw)
+    emit(agent_line({**on, **line}))
+    off = phase_agent(torch, cmd, graphs=False, **kw)
+    for key in ("printed", "documents", "checkpoint"):
+        if on[key] != off[key]:
+            raise AssertionError(f"agent {cmd}{tag} over knowledge: graphs off gave "
+                                 f"another {key}")
+    emit(agent_line({**off, "same_as_graphs": True}))
 
 
 # Phase 20: `simulate eval` and `eval` through the port's CLI: live
@@ -4281,10 +4460,12 @@ def knowledge_phases(torch) -> None:
 # rows a decode forward), 4 took 141.6 s (1.54: one case runs its 20
 # iterations alone), and the one-case pair took 49.8 s and 130.0 s at 8
 # layers, 3.6 s and 6.5 s at 2. So 8 scenarios and the pair at 2 layers.
+# The 8 scenarios at 32 layers later took up to 208.0 s, a fifth of the
+# whole run, so they run at CUT_LAYERS.
 EVAL_N = 8  # generated scenarios, drawn from EVAL_SEED
 EVAL_SEED = 0
 EVAL_CONCURRENCY = 4
-EVAL_LAYERS = None  # the simulated run's depth: all 32 layers
+EVAL_LAYERS = CUT_LAYERS  # the simulated run's depth
 EVAL_FIXTURE_CASE = "payment-db-pool"  # the deterministic pair's one case
 EVAL_FIXTURE_LAYERS = 2  # the pair's depth
 EVAL_FIXTURES = ROOT / "examples" / "evals" / "investigation-fixtures.sample.json"
@@ -4477,7 +4658,7 @@ def phase_eval(torch, kind: str, layers: Optional[int], graphs: bool = True) -> 
 
 
 def eval_phases(torch) -> None:
-    """``eval_simulated`` at all 32 layers, then ``eval_fixtures`` at
+    """``eval_simulated`` at EVAL_LAYERS, then ``eval_fixtures`` at
     EVAL_FIXTURE_LAYERS with the step graphs on and off. Only the one-case pair is
     compared: alone on the engine, its calls and their batches are
     deterministic, and the report's case rows (result, score, dimensions,
@@ -4850,7 +5031,10 @@ def phase_serve(torch) -> dict:
 
         def run(rid, path, payload):
             barrier.wait()
-            results[rid] = send(path, payload, rid=rid)
+            try:
+                results[rid] = send(path, payload, rid=rid)
+            except Exception as e:  # noqa: BLE001 — raised in the main thread below
+                results[rid] = e
 
         threads = [threading.Thread(target=run, args=job) for job in jobs]
         t0 = time.perf_counter()
@@ -4867,6 +5051,9 @@ def phase_serve(torch) -> dict:
         completion_tokens = 0
         http_ttft = []
         finishes = {}
+        failed = {rid: repr(r) for rid, r in results.items() if isinstance(r, Exception)}
+        if failed:
+            raise AssertionError(f"serve: client requests failed: {failed}")
         for rid, path, payload in jobs:
             status, _, text, first, _ = results[rid]
             if status != 200:
@@ -5646,21 +5833,7 @@ def moe_client(torch, weights: str, layers: Optional[int] = None):
                                      max_new_tokens=MOE_MAX_NEW)
 
 
-def graphs_off_twin(client):
-    """A client over ``client``'s params (none drawn again) with the step
-    graphs off and otherwise the same engine; ``client`` must be stopped."""
-    import dataclasses
-
-    from runbookai_tpu_torch.model.torch_cuda import TorchCudaClient
-
-    core = client.core
-    ecfg = dataclasses.replace(core.ecfg, step_graphs=False)
-    twin = TorchCudaClient._core(core.cfg, core.params, client.tokenizer, ecfg)
-    return TorchCudaClient(twin, client.tokenizer, max_new_tokens=client.max_new_tokens,
-                           chat_format=client.chat_format)
-
-
-def moe_serve(client, texts: list[str], max_new: int) -> dict:
+def serve_texts(client, texts: list[str], max_new: int, what: str = "moe") -> dict:
     """Serve ``texts`` at once (greedy, ``max_new`` tokens each) from a
     fresh speculation backoff and stop the engine: every request must end
     with 1..max_new in-vocabulary tokens. Returns the streams, walls and
@@ -5676,10 +5849,10 @@ def moe_serve(client, texts: list[str], max_new: int) -> dict:
     if client.engine.crash_count or len(finished) != len(texts) or any(
             not 1 <= n <= max_new for n in done) or any(
             r.finish_reason is None or r.finish_reason.value == "aborted" for r in finished):
-        raise AssertionError(f"moe: served {done} tokens, finishes "
+        raise AssertionError(f"{what}: served {done} tokens, finishes "
                              f"{[r.finish_reason for r in finished]}")
     if any(not 0 <= t < core.cfg.vocab_size for r in finished for t in r.all_out_ids):
-        raise AssertionError("moe: a sampled id lies outside the vocabulary")
+        raise AssertionError(f"{what}: a sampled id lies outside the vocabulary")
     ids = [client._prompt_ids("", u, None) for u in texts]
     n_steps = core.metrics["decode_steps"] - steps
     return {"greedy_tokens": [streams_by_prompt(finished, p) for p in ids],
@@ -5710,7 +5883,7 @@ def phase_moe_bf16(torch) -> dict:
     build_s = time.perf_counter() - t0
     texts = moe_prompts()
     reset_counts()
-    on = moe_serve(client, texts, MOE_SHORT_NEW * 2)
+    on = serve_texts(client, texts, MOE_SHORT_NEW * 2)
     launched = counts()
     check_moe_launches("bfloat16", launched)
     core = client.core
@@ -5722,10 +5895,10 @@ def phase_moe_bf16(torch) -> dict:
            "graph_replays": core.metrics["graph_replays"], "launches": launched,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "max_memory_reserved": torch.cuda.max_memory_reserved(), **on}
-    twin = graphs_off_twin(client)
+    twin = engine_twin(client_parts(client), step_graphs=False)
     del client, core
     free_device(torch)
-    off = moe_serve(twin, texts, MOE_SHORT_NEW * 2)
+    off = serve_texts(twin, texts, MOE_SHORT_NEW * 2)
     if twin.core.metrics["graph_replays"] or off["greedy_tokens"] != on["greedy_tokens"]:
         raise AssertionError(f"moe bf16: graphs off gave other greedy tokens, first at "
                              f"{first_divergence(off['greedy_tokens'], on['greedy_tokens'])}")
@@ -5763,7 +5936,7 @@ def phase_moe_int8(torch) -> dict:
                              f"of weights, the tree holds {w_bytes}")
     built = torch.cuda.memory_allocated()
     reset_counts()
-    run = moe_serve(client, moe_prompts(), MOE_MAX_NEW)
+    run = serve_texts(client, moe_prompts(), MOE_MAX_NEW)
     launched = counts()
     check_moe_launches("int8", launched)
     res = {"phase": "moe_int8", "model": MOE_MODEL, "layers": core.cfg.n_layers,
@@ -5780,12 +5953,12 @@ def phase_moe_int8(torch) -> dict:
            "max_memory_reserved": torch.cuda.max_memory_reserved()}
     res.pop("greedy_tokens")
     short = moe_prompts(short=True)
-    on = moe_serve(client, short, MOE_SHORT_NEW)
+    on = serve_texts(client, short, MOE_SHORT_NEW)
     res["graph_replays"] = core.metrics["graph_replays"]
-    twin = graphs_off_twin(client)
+    twin = engine_twin(client_parts(client), step_graphs=False)
     del client, core
     free_device(torch)
-    off = moe_serve(twin, short, MOE_SHORT_NEW)
+    off = serve_texts(twin, short, MOE_SHORT_NEW)
     if twin.core.metrics["graph_replays"] or off["greedy_tokens"] != on["greedy_tokens"]:
         raise AssertionError(f"moe int8: graphs off gave other greedy tokens, first at "
                              f"{first_divergence(off['greedy_tokens'], on['greedy_tokens'])}")
@@ -5844,7 +6017,6 @@ def train_steps(torch, trainer, tokens, steps: int) -> dict:
     import math
     import statistics
 
-    from torch.profiler import ProfilerActivity, profile
 
     free_device(torch)
     torch.cuda.reset_peak_memory_stats()
@@ -5855,7 +6027,7 @@ def train_steps(torch, trainer, tokens, steps: int) -> dict:
         losses.append(trainer.train_step(tokens))
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         t0 = time.perf_counter()
         losses.append(trainer.train_step(tokens))
         torch.cuda.synchronize()
@@ -5874,8 +6046,9 @@ def train_steps(torch, trainer, tokens, steps: int) -> dict:
         elif e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith(
                 "Optimizer.step#"):
             optimizer_ms += e.device_time_total / 1e3
-    if sum(busy.values()) and not optimizer_ms:
-        raise AssertionError("train: the profile holds no optimizer kernel")
+    if not sum(busy.values()) or not optimizer_ms:
+        raise AssertionError(f"train: the profiled step kept no device kernel, or no "
+                             f"optimizer kernel: {busy}, {optimizer_ms} ms")
     step_s = statistics.median(walls[1:])
     return {"steps": steps, "batch": [TRAIN_BATCH, TRAIN_SEQ], "losses": losses,
             "first_step_s": walls[0], "ms_per_step": step_s * 1e3,
@@ -6158,6 +6331,649 @@ def train_phases(torch) -> dict:
     return total
 
 
+# --------------------- phase 25: long contexts and the 70B on one card
+LONG_MODEL = "llama3.1-8b-instruct"  # the 8B's widths, Llama-3.1 rope scaling
+LONG_SEQ = 32_768  # llm.max_seq_len of the long deployment
+LONG_POOL_PAGES = 4_096  # llm.num_pages: 65,536 tokens, 4.29 GB of fp8 pool
+LONG_PROMPT = 32_000  # byte tokens of the long request (chat template included), about
+LONG_MAX_NEW = 32
+LONG_TABLE = LONG_SEQ // PS  # 2,048 table columns (+ the trash column)
+# The page split's pool: the allocator hands out the lowest free pages first,
+# so the long request's 2,000-odd pages cross page shard 0's 1,280 into
+# shard 1's (of LONG_POOL_PAGES they would all lie on shard 0).
+LONG_SPLIT_PAGES = 2_560
+# The kernel cases over the long table: B = 8 decode rows up to 32,767 keys,
+# 3,925 pages of the deployment's 4,096.
+LONG_DECODE_CTX = [32_767, 16_384, 8_191, 4_097, 1_000, 300, 17, 0]
+LONG_CHUNK_START = LONG_SEQ - 512  # the long prompt's last 512-token chunk
+# W1 with a decode row at a 32k context beside the served ones and a
+# 512-token prefill at offset 4096 (``ctx32k``); and with the long prompt's
+# last 512-token chunk (ctx 32,768: its prefill tiles walk up to 32,768 keys
+# unsplit, as the served mixed run's do) beside a 16,384-key decode row and
+# the served ones (``prefill32k``).
+RAGGED_LONG_KINDS = {"ctx32k": ([32_767, *SERVED_CTX[1:]], 512),
+                     "prefill32k": ([16_384, *SERVED_CTX[1:]], 512, LONG_CHUNK_START)}
+G8 = (64, 8, 128)  # llama3-70b-instruct's heads: a GQA group of 8
+BIG_MODEL = "llama3-70b-instruct"  # dim 8192, 80 layers, 64/8 heads, ffn 28672
+BIG_QMM_SHAPES = {"wq": (8192, 8192), "wk": (8192, 1024), "wv": (8192, 1024),
+                  "wo": (8192, 8192), "w_gate": (8192, 28672), "w_up": (8192, 28672),
+                  "w_down": (28672, 8192)}
+BIG_QMM_ROWS = (8, 64)
+# Rotating slices of the 70B's K5 cases: eight of its smallest matrix (wk,
+# 8.4 MB) already pass the 50 MB L2.
+BIG_QMM_LAYERS = 8
+# Of plan_serving's pool budget (the card's memory less the weights and the
+# plan's 1.5 GiB headroom), the bytes left out of the pool for the prefill's
+# widened int8 matrices (470 MB for w_gate), activations, the step graphs'
+# pool, the CUDA context and the allocator's fragments: at 3 GiB one card
+# kept 0.78 GB free after serving, another ran out in the capture with 1.98
+# GiB reserved but unallocated. 4.75 GiB leaves 1,072 pages on an 85.02 GB
+# H100.
+BIG_POOL_MARGIN = int(4.75 * 2**30)
+BIG_MIN_PAGES = 1_024
+BIG_MAX_NEW = 32
+BIG_PROFILE_STEPS = 4  # engine steps of the profiled decode window
+
+
+def chunk_case(pa, torch, q, k, v, tables, ctx, pos, real, what: str,
+               gate_drop: bool = True) -> dict:
+    """One bf16 chunk call (K2 over a bf16, int8 or fp8 pool) against its
+    plain version: one K2 launch (a split call's merge counts apart), its
+    split count, the dropped-last-page check (gated with ``gate_drop``, as
+    phase 3 gates it), and :func:`time_chunk`'s times and bound."""
+    q_start = pos[:, 0].contiguous()
+    reset_counts()
+    out = pa.paged_chunk_attention(q, k, v, tables, ctx, pos, PS)
+    per_call = sum(pa.launches.values())
+    if per_call != 1:
+        raise AssertionError(f"chunk {what}: {counts()} launches for one call")
+    ref = pa.plain_paged_attention(q, k, v, tables, ctx, q_start, PS)
+    torch.cuda.synchronize()
+    err = compare(out, ref, "bfloat16", f"chunk {what}")
+    sel = torch.tensor([i for i, n in enumerate(real) if n], device=q.device)
+    wrong = drop_last_page(pa, q[sel], k, v, tables[sel], ctx[sel], q_start[sel], ref[sel],
+                           "bfloat16", gate=gate_drop)
+    del out, ref
+    return {"max_abs_err": err, "tol": TOL["bfloat16"], "q": list(q.shape),
+            "splits": chunk_plan_of(pa, q, k, tables).splits, "launches_per_call": per_call,
+            "drop_last_page": wrong,
+            **time_chunk(pa, torch, q, k, v, tables, ctx, pos, "bfloat16")}
+
+
+def phase_long_kernels(pa, torch) -> dict:
+    """Phase 25 (a), the long table: the attention kernels over tables of
+    LONG_TABLE + 1 columns (max_seq_len 32,768) and a pool of
+    LONG_POOL_PAGES pages, 32/8 heads at head_dim 128, bf16 queries. K1 on
+    B = 8 rows of LONG_DECODE_CTX keys, over a bf16 and an fp8 pool (the
+    fp8 call equal to the bf16 one over the widened pool); K4 on the same
+    input cut into PG page shards at the tp=16 call's heads; K2 on the long
+    prompt's last 512-token chunk (ctx 32,768), bf16 and fp8; W1 with a
+    decode row at 32,767 keys (``ragged``), and W1 with that last chunk as
+    its prefill row beside decode rows (``ragged_prefill32k``), bf16 and
+    fp8. Each against its plain version with TOL, timed, beside its bound
+    and SDPA's time; the dropped-last-page checks are recorded, not gated
+    (a 15-key last page of 32,767 keys moves the output by less than the
+    tolerance)."""
+    from runbookai_tpu_torch.ops.attention import to_fp8
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(25)
+    wide = dict(columns=LONG_TABLE, pages=LONG_POOL_PAGES)
+    res: dict = {"phase": "long_kernel", "table_columns": LONG_TABLE + 1,
+                 "pool_pages": LONG_POOL_PAGES, "heads": [N_Q, N_KV], "head_dim": HD}
+    ctx = torch.tensor(LONG_DECODE_CTX, dtype=torch.int32, device=dev)
+    k, v, tables = make_pool(gen, torch.bfloat16, LONG_DECODE_CTX, dev, **wide)
+    q = torch.randn((B, N_Q, HD), generator=gen, device=dev).to(torch.bfloat16)
+    res["decode"] = decode_case(pa, torch, q, k, v, tables, ctx, "bfloat16", gate_drop=False)
+    k8, v8 = to_fp8(k), to_fp8(v)
+    res["decode_fp8"] = {
+        **decode_case(pa, torch, q, k8, v8, tables, ctx, "bfloat16", gate_drop=False),
+        **same_as_bf16(pa, torch, lambda kk, vv: pa.paged_decode_attention(
+            q, kk, vv, tables, ctx, PS), k8, v8, "decode fp8 ctx32k")}
+    del k8, v8
+    nq, nkv = plan_heads(torch)
+    res["decode_partial"] = shard_case(
+        pa, torch, q[:, :nq].contiguous(), k[:, :nkv].contiguous(),
+        v[:, :nkv].contiguous(), tables, ctx, None, "bfloat16", gate_drop=False)
+    del q, k, v
+    q, k, v, tables, ctx, pos, real = chunk_inputs(torch, dev, gen, torch.bfloat16,
+                                                   "prefill_32k", **wide)
+    res["chunk"] = chunk_case(pa, torch, q, k, v, tables, ctx, pos, real, "ctx32k",
+                              gate_drop=False)
+    k8, v8 = to_fp8(k), to_fp8(v)
+    res["chunk_fp8"] = {
+        **chunk_case(pa, torch, q, k8, v8, tables, ctx, pos, real, "ctx32k fp8",
+                     gate_drop=False),
+        **same_as_bf16(pa, torch, lambda kk, vv: pa.paged_chunk_attention(
+            q, kk, vv, tables, ctx, pos, PS), k8, v8, "chunk fp8 ctx32k")}
+    del q, k, v, k8, v8
+    for kind, key in (("ctx32k", "ragged"), ("prefill32k", "ragged_prefill32k")):
+        q, k, v, tables, ctx, pos, rows, pads = ragged_inputs(
+            torch, dev, gen, torch.bfloat16, kind, **wide)
+        res[key] = ragged_case(pa, torch, q, k, v, tables, ctx, pos, rows, pads, kind)
+        if kind == "prefill32k":
+            k8, v8 = to_fp8(k), to_fp8(v)
+            res[key + "_fp8"] = {
+                **ragged_case(pa, torch, q, k8, v8, tables, ctx, pos, rows, pads,
+                              f"{kind} fp8"),
+                **same_as_bf16(pa, torch, lambda kk, vv: pa.paged_ragged_attention(
+                    q, kk, vv, tables, ctx, pos, rows, PS, ragged_block=RQ), k8, v8,
+                    f"ragged fp8 {kind}")}
+            del k8, v8
+        del q, k, v
+    res["max_abs_err"] = max(res[x]["max_abs_err"] for x in (
+        "decode", "decode_fp8", "decode_partial", "chunk", "chunk_fp8", "ragged",
+        "ragged_prefill32k", "ragged_prefill32k_fp8"))
+    return res
+
+
+def phase_group8_kernels(pa, torch) -> dict:
+    """Phase 25 (a), a GQA group of 8: K1 and K3 (an int8 pool quantized
+    from the bf16 one) on phase 2's decode input, K2 and K2-int8 on phase
+    3's 4 x 512 prefill and T=8 verify, and W1 on phase 13's served mixed
+    batch, at llama3-70b-instruct's 64 query / 8 kv heads (head_dim 128),
+    bf16 queries: each against its plain version with TOL, timed beside its
+    bound and SDPA's time."""
+    from runbookai_tpu_torch.ops.attention import quantize_kv
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(26)
+    n_q, n_kv, hd = G8
+    res: dict = {"phase": "group8_kernel", "heads": [n_q, n_kv], "head_dim": hd}
+    ctx = torch.tensor(DECODE_CTX, dtype=torch.int32, device=dev)
+    k, v, tables = make_pool(gen, torch.bfloat16, DECODE_CTX, dev, n_kv, hd)
+    q = torch.randn((B, n_q, hd), generator=gen, device=dev).to(torch.bfloat16)
+    res["decode"] = decode_case(pa, torch, q, k, v, tables, ctx, "bfloat16")
+    res["decode_int8"] = decode_case(pa, torch, q, quantize_kv(k), quantize_kv(v), tables,
+                                     ctx, "bfloat16")
+    del q, k, v
+    for kind in ("prefill", "verify"):
+        q, k, v, tables, ctx, pos, real = chunk_inputs(torch, dev, gen, torch.bfloat16, kind,
+                                                       G8)
+        res[f"chunk_{kind}"] = chunk_case(pa, torch, q, k, v, tables, ctx, pos, real,
+                                          f"group 8 {kind}")  # the check gated, as phase 3
+        res[f"chunk_int8_{kind}"] = chunk_case(pa, torch, q, quantize_kv(k), quantize_kv(v),
+                                               tables, ctx, pos, real, f"group 8 int8 {kind}")
+        del q, k, v
+    q, k, v, tables, ctx, pos, rows, pads = ragged_inputs(torch, dev, gen, torch.bfloat16,
+                                                          "served", *G8)
+    res["ragged"] = ragged_case(pa, torch, q, k, v, tables, ctx, pos, rows, pads, "group 8")
+    del q, k, v
+    res["max_abs_err"] = max(c["max_abs_err"] for c in res.values() if isinstance(c, dict))
+    return res
+
+
+def phase_qmm_big(torch) -> dict:
+    """Phase 25 (a), K5 at llama3-70b-instruct's four (K, N) shapes and
+    M = 8 and 64 (a decode step of 8 slots, a T=8 verify), as phase 5 runs
+    it (``qmm_case``), rotating over BIG_QMM_LAYERS slices; one layer's seven
+    products summed at each M."""
+    from runbookai_tpu_torch.ops import qmm as qm
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(27)
+    cases: dict = {}
+    for k, n in sorted(set(BIG_QMM_SHAPES.values())):
+        q = torch.empty((BIG_QMM_LAYERS, k, n), dtype=torch.int8, device=dev)
+        for part in q:
+            part.random_(-127, 128, generator=gen)
+        s = (torch.rand((BIG_QMM_LAYERS, 1, n), generator=gen, device=dev) + 0.5) \
+            * (3 ** 0.5 / (127 * k ** 0.5))
+        deq = q.to(torch.bfloat16) * s.to(torch.bfloat16)
+        for m in BIG_QMM_ROWS:
+            x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+            cases[f"{m}x{k}x{n}"] = qmm_case(qm, torch, x, q, s, deq, "bfloat16")
+        del q, s, deq
+    per_layer = {}
+    for m, key in ((8, "decode"), (64, "verify")):
+        rows = [cases[f"{m}x{k}x{n}"] for k, n in BIG_QMM_SHAPES.values()]
+        per_layer[key] = {f: sum(r[f] for r in rows)
+                          for f in ("ms", "events_ms", "graph_ms", "plain_ms", "library_ms",
+                                    "bound_ms")}
+        per_layer[key]["bound_by"] = ("bytes" if all(r["bound_by"] == "bytes" for r in rows)
+                                      else "operations")
+    return {"phase": "qmm_70b_kernel", "model": BIG_MODEL, "tol": TOL["bfloat16"],
+            "layers_rotated": BIG_QMM_LAYERS,
+            "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+            "per_layer": per_layer, "cases": cases}
+
+
+def long_prompt() -> str:
+    """A user turn whose prompt, chat template included, is about
+    LONG_PROMPT byte tokens: incident log lines drawn from a seed."""
+    import random
+
+    rng = random.Random(25)
+    services = KNOWLEDGE_SERVICES
+    lines = []
+    size = 0
+    while size < LONG_PROMPT - 200:
+        line = (f"{rng.randrange(10**9):09d} {rng.choice(services)} "
+                f"{rng.choice(_SYMPTOMS)} p99={rng.randrange(20, 4000)}ms "
+                f"{' '.join(rng.choice(_WORDS) for _ in range(6))}\n")
+        lines.append(line)
+        size += len(line)
+    return "summarise these incident log lines:\n" + "".join(lines)
+
+
+def long_engine_cfg(torch):
+    """The long deployment's engine: ``from_config``'s for an ``llm`` block
+    with ``max_seq_len`` LONG_SEQ, ``num_pages`` LONG_POOL_PAGES and
+    ``kv_cache_dtype: fp8`` (the serving engine's defaults otherwise)."""
+    import dataclasses
+
+    from runbookai_tpu_torch.model.torch_cuda import serving_engine_config
+    from runbookai_tpu_torch.models.llama import get_config
+
+    return dataclasses.replace(serving_engine_config(get_config(LONG_MODEL),
+                                                     torch.float8_e4m3fn),
+                               max_seq_len=LONG_SEQ, num_pages=LONG_POOL_PAGES)
+
+
+def long_client(torch):
+    """llama3.1-8b-instruct at all 32 layers from seed 0 through
+    ``TorchCudaClient.from_config`` on an ``llm`` block: bf16 weights, an
+    fp8 pool, ``max_seq_len`` LONG_SEQ, ``num_pages`` LONG_POOL_PAGES, byte
+    tokenizer, step graphs on."""
+    from runbookai_tpu_torch.model.torch_cuda import TorchCudaClient
+    from runbookai_tpu_torch.utils.config import LLMConfig
+
+    llm = LLMConfig(provider="jax-tpu", model=LONG_MODEL, dtype="bfloat16",
+                    kv_cache_dtype="fp8", max_seq_len=LONG_SEQ, num_pages=LONG_POOL_PAGES,
+                    max_new_tokens=LONG_MAX_NEW)
+    client = TorchCudaClient.from_config(llm, device=DEVICE)
+    want, got = long_engine_cfg(torch), client.core.ecfg
+    if (got.max_seq_len, got.num_pages, got.kv_dtype) != (want.max_seq_len, want.num_pages,
+                                                           want.kv_dtype):
+        raise AssertionError(f"from_config built {got}")
+    return client
+
+
+def engine_twin(parts: tuple, **changes):
+    """A client over the params of ``parts`` (:func:`client_parts` of a
+    stopped client) with its engine config changed by ``changes``, none of
+    them drawn again. Where the caller drops the stopped client's engine
+    first, the two pools are never held together."""
+    import dataclasses
+
+    from runbookai_tpu_torch.model.torch_cuda import TorchCudaClient
+
+    cfg, params, tokenizer, ecfg, max_new, fmt = parts
+    core = TorchCudaClient._core(cfg, params, tokenizer, dataclasses.replace(ecfg, **changes))
+    return TorchCudaClient(core, tokenizer, max_new_tokens=max_new, chat_format=fmt)
+
+
+def client_parts(client) -> tuple:
+    core = client.core
+    return (core.cfg, core.params, client.tokenizer, core.ecfg, client.max_new_tokens,
+            client.chat_format)
+
+
+def long_run(torch, client, texts: list[str], what: str) -> dict:
+    """Serve ``texts`` at once on ``client`` (:func:`serve_texts`, from a
+    fresh speculation backoff; the engine stops), with the launch counts set
+    to 0 just before and read just after, the rows of every decode dispatch
+    and the peak memory."""
+    core = client.core
+    torch.cuda.reset_peak_memory_stats()
+    rows = decode_rows(core)
+    reset_counts()
+    run = serve_texts(client, texts, LONG_MAX_NEW, what)
+    launched = counts()
+    return {**run, "launches": {k: n for k, n in launched.items() if n},
+            "graph_replays": core.metrics["graph_replays"],
+            "mixed_steps": core.metrics["mixed_steps"],
+            "decode_dispatch_rows": [r for r, _ in rows],
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "max_memory_reserved": torch.cuda.max_memory_reserved()}
+
+
+def record_first_logits(core, ctx_len: int) -> dict:
+    """Keep, from ``core``'s first draw with a row at context ``ctx_len``,
+    that row's logits (f32, on the card): a prompt of ``ctx_len`` tokens
+    draws its first token from its last position's logits, on the split
+    path (prefill) and on the mixed one alike. Wraps this engine's
+    ``_draw`` only; each draw before the hit reads its contexts on the
+    host, so step graphs must be off."""
+    seen: dict = {}
+    draw = core._draw
+
+    def recording_draw(logits, inputs, ctx_lens, *args, **kwargs):
+        if "logits" not in seen:
+            hit = (ctx_lens == ctx_len).nonzero()
+            if hit.numel():
+                seen["logits"] = logits[int(hit[0, 0])].float().clone()
+        return draw(logits, inputs, ctx_lens, *args, **kwargs)
+
+    core._draw = recording_draw
+    return seen
+
+
+def first_token_witness(split, mixed) -> dict:
+    """The long request's first token on the split path and on the mixed one
+    (``split`` and ``mixed``: the logits of its prompt's last position on
+    each, as the engine drew from them): each path's greedy pick (argmax:
+    the lowest id among equal logits), the tokens that share its top logit,
+    both picks' logits on each path, and how far the two paths' logits lie
+    apart. Recorded, not gated: it shows whether a flip is a tie broken
+    otherwise after rounding."""
+    picks = {"split": int(split.argmax()), "mixed": int(mixed.argmax())}
+    res: dict = {}
+    for name, logits in (("split", split), ("mixed", mixed)):
+        top = logits.max()
+        res[name] = {"pick": picks[name], "top_logit": float(top),
+                     "tokens_at_top": (logits == top).nonzero().flatten().tolist()[:8],
+                     "logits_at_picks": {p: float(logits[t]) for p, t in picks.items()}}
+    diff = (split - mixed).abs()
+    res.update(max_abs_logit_diff=float(diff.max()), mean_abs_logit_diff=float(diff.mean()),
+               same_first_token=picks["split"] == picks["mixed"])
+    return res
+
+
+def check_long_launches(what: str, launched: dict, must: tuple) -> None:
+    if any(not launched.get(k) for k in must) or any(
+            n and k in BF16_POOL for k, n in launched.items()):
+        raise AssertionError(f"{what}: a kernel of the path never launched, or a bf16-pool "
+                             f"kernel ran over the fp8 pool: {launched}")
+
+
+def phase_long_serve(torch) -> dict:
+    """Phase 25 (b): the long deployment (:func:`long_client`) serves one
+    prompt of about LONG_PROMPT byte tokens together with phase 7's five,
+    LONG_MAX_NEW greedy tokens each, with the step graphs on; then twins
+    over the same params: graphs off (equal streams), mixed dispatch on
+    (W1 over the long row's chunks beside the decode rows; its streams'
+    share equal to the split path's is recorded, as phase 14's) and mixed
+    with graphs off (equal to mixed on). Reports the long request's TTFT,
+    decode seconds a step, peak memory, K1's, K2's and W1's launches, and
+    the witness of the long request's first token on the split and the
+    mixed path (:func:`first_token_witness`, from the graphs-off runs)."""
+    texts = [long_prompt(), *prompts()]
+    free_device(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    client = long_client(torch)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    core = client.core
+    n_prompt = len(client._prompt_ids("", texts[0], None))
+    if not LONG_PROMPT - 1_000 <= n_prompt <= LONG_SEQ - LONG_MAX_NEW - 1:
+        raise AssertionError(f"the long prompt is {n_prompt} tokens")
+    res = {"phase": "long_serve", "model": LONG_MODEL, "layers": core.cfg.n_layers,
+           "max_seq_len": core.ecfg.max_seq_len, "num_pages": core.ecfg.num_pages,
+           "kv_dtype": str(core.ecfg.kv_dtype).split(".")[1],
+           "pool_bytes": core.kv.pool.nbytes(), "table_columns": core.kv.max_pages_per_seq + 1,
+           "long_prompt_tokens": n_prompt, "build_s": build_s,
+           "graph_capture_s": core.metrics["graph_capture_s"],
+           "graph_buckets": len(core._graphs.buckets) if core._graphs else 0,
+           "allocated_built": torch.cuda.memory_allocated()}
+    on = long_run(torch, client, texts, "long")
+    check_long_launches("long", on["launches"], ("paged_decode_attention_fp8",
+                                                 "paged_chunk_attention_fp8"))
+    if not on["graph_replays"]:
+        raise AssertionError("long: step graphs on, but no replay")
+    runs = {"graphs": on}
+    parts = client_parts(client)
+    del client, core
+    first_logits = {}
+    for name, changes, must in (
+            ("graphs_off", dict(step_graphs=False), ("paged_decode_attention_fp8",
+                                                     "paged_chunk_attention_fp8")),
+            ("mixed", dict(mixed_dispatch=True), ("ragged_plan", "paged_ragged_attention_fp8")),
+            ("mixed_graphs_off", dict(mixed_dispatch=True, step_graphs=False),
+             ("paged_ragged_attention_fp8",))):
+        free_device(torch)
+        twin = engine_twin(parts, **changes)
+        if changes.get("step_graphs") is False:
+            first_logits[name] = record_first_logits(twin.core, n_prompt)
+        runs[name] = long_run(torch, twin, texts, f"long {name}")
+        check_long_launches(f"long {name}", runs[name]["launches"], must)
+        if (runs[name]["graph_replays"] > 0) == (changes.get("step_graphs") is False):
+            raise AssertionError(f"long {name}: {runs[name]['graph_replays']} replays")
+        if "mixed" in name and not runs[name]["mixed_steps"]:
+            raise AssertionError(f"long {name}: mixed dispatch on, but no mixed step ran")
+        del twin
+    for name, base in (("graphs_off", "graphs"), ("mixed_graphs_off", "mixed")):
+        if runs[name]["greedy_tokens"] != runs[base]["greedy_tokens"]:
+            raise AssertionError(f"long {name}: other greedy tokens than {base}, first at "
+                                 f"{first_divergence(runs[name]['greedy_tokens'], runs[base]['greedy_tokens'])}")
+        runs[name][f"same_tokens_as_{base}"] = True
+    runs["mixed"]["same_greedy_tokens_as_graphs"] = same_token_share(
+        runs["mixed"]["greedy_tokens"], on["greedy_tokens"])
+    runs["mixed"]["first_divergence_from_graphs"] = first_divergence(
+        runs["mixed"]["greedy_tokens"], on["greedy_tokens"])
+    runs["mixed"]["first_token_witness"] = first_token_witness(
+        first_logits["graphs_off"]["logits"], first_logits["mixed_graphs_off"]["logits"])
+    del first_logits
+    for run in runs.values():
+        run["long_ttft_ms"] = run["ttft_ms"][0]
+        run.pop("greedy_tokens")
+    free_device(torch)
+    return {**res, **runs}
+
+
+def long_split_client(torch, tp: int, graphs: bool = True):
+    """The long deployment's engine (:func:`long_engine_cfg`) over a pool of
+    LONG_SPLIT_PAGES pages at CUT_LAYERS of the 32 layers, bf16 weights over
+    the fp8 pool, through ``TorchCudaClient.build``: unsharded (``tp`` 1) or
+    on the tp=16 page split with every shard on the one card (8 kv shards x
+    2 page shards)."""
+    import dataclasses
+    from unittest import mock
+
+    from runbookai_tpu_torch.model.torch_cuda import TorchCudaClient
+    from runbookai_tpu_torch.models import llama
+
+    cfg = llama.get_config(LONG_MODEL)
+    mesh = dict(tp=tp, devices=[f"{DEVICE}:0"] * tp) if tp > 1 else {}
+    with mock.patch.dict(llama.CONFIGS, {LONG_MODEL: dataclasses.replace(
+            cfg, n_layers=CUT_LAYERS)}):
+        return TorchCudaClient.build(LONG_MODEL, device=DEVICE, dtype=torch.bfloat16, seed=0,
+                                     engine_cfg=dataclasses.replace(
+                                         long_engine_cfg(torch), num_pages=LONG_SPLIT_PAGES),
+                                     engine={"step_graphs": graphs},
+                                     max_new_tokens=LONG_MAX_NEW, **mesh)
+
+
+def phase_long_split(torch) -> dict:
+    """Phase 25 (c): the long request alone on the tp=16 page split (K4 and
+    the chunk partial over fp8 page shards) at CUT_LAYERS layers, step
+    graphs on and off, and on the unsharded engine at the same depth: all
+    three streams equal; pages of both page shards in use."""
+    texts = [long_prompt()]
+    runs = {}
+    for name, tp, graphs, must in (
+            ("unsharded", 1, True, ("paged_decode_attention_fp8", "paged_chunk_attention_fp8")),
+            ("page_split", 16, True, FP8_PARTIALS),
+            ("page_split_graphs_off", 16, False, FP8_PARTIALS)):
+        free_device(torch)
+        t0 = time.perf_counter()
+        client = long_split_client(torch, tp, graphs)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        core = client.core
+        pages: set = set()
+        alloc = core.kv.allocator.alloc
+
+        def recording_alloc(n, alloc=alloc):
+            got = alloc(n)
+            pages.update(got)
+            return got
+
+        core.kv.allocator.alloc = recording_alloc
+        run = long_run(torch, client, texts, f"long {name}")
+        check_long_launches(f"long {name}", run["launches"], must)
+        run.update(build_s=build_s, graph_capture_s=core.metrics["graph_capture_s"])
+        if core.mesh is not None:
+            local = core.ecfg.num_pages // core.mesh.seq
+            run["pages_allocated_by_shard"] = [sum(1 for p in pages if p // local == s)
+                                               for s in range(core.mesh.seq)]
+            if not all(run["pages_allocated_by_shard"]):
+                raise AssertionError(f"long {name}: a page shard unused")
+            run["mesh"] = core.mesh.shape
+        runs[name] = run
+        del client, core
+    want = runs["unsharded"]["greedy_tokens"]
+    for name in ("page_split", "page_split_graphs_off"):
+        if runs[name]["greedy_tokens"] != want:
+            raise AssertionError(f"long {name}: other greedy tokens than the unsharded "
+                                 f"engine, first at "
+                                 f"{first_divergence(runs[name]['greedy_tokens'], want)}")
+    for run in runs.values():
+        run["long_ttft_ms"] = run["ttft_ms"][0]
+        run.pop("greedy_tokens")
+    free_device(torch)
+    return {"phase": "long_split", "model": LONG_MODEL, "layers": CUT_LAYERS,
+            "same_tokens": True, **runs}
+
+
+def big_client(torch):
+    """llama3-70b-instruct at all 80 layers, int8 weights drawn from seed 0
+    on the card (``init_params_quantized``), through
+    ``TorchCudaClient.from_config`` on an ``llm`` block: a bf16 pool of
+    ``num_pages`` taken from ``plan_serving``'s budget on this card less
+    BIG_POOL_MARGIN, ``max_seq_len`` 8,192, 8 slots, byte tokenizer.
+    Returns (client, plan, pages)."""
+    from runbookai_tpu_torch.engine.memory_plan import plan_serving
+    from runbookai_tpu_torch.model.torch_cuda import TorchCudaClient
+    from runbookai_tpu_torch.models.llama import get_config
+    from runbookai_tpu_torch.utils.config import LLMConfig
+
+    plan = plan_serving(get_config(BIG_MODEL), 8192, batch=8, weights="int8",
+                        kv_dtype_bytes=2,
+                        hbm_bytes=torch.cuda.get_device_properties(0).total_memory)
+    pages = int((plan.pool_budget_bytes - BIG_POOL_MARGIN)
+                // (PS * plan.kv_bytes_per_token_per_chip))
+    if pages < BIG_MIN_PAGES:
+        raise AssertionError(f"70B: the plan leaves {pages} pages: {plan.explain()}")
+    llm = LLMConfig(provider="jax-tpu", model=BIG_MODEL, dtype="int8", max_seq_len=8192,
+                    num_pages=pages, max_batch_slots=8, max_new_tokens=BIG_MAX_NEW)
+    return TorchCudaClient.from_config(llm, device=DEVICE), plan, pages
+
+
+def big_decode_profile(torch, client) -> dict:
+    """Device time of a decode window on ``client``'s engine, stepped in this
+    thread: phase 7's prompts prefilled, then BIG_PROFILE_STEPS engine steps
+    (speculation off) under the profiler, by kernel class (K5 is ``qmm``),
+    and the window's decode steps."""
+
+    from runbookai_tpu_torch.engine.request import EngineRequest
+
+    core = client.core
+    speculative, core.ecfg.speculative = core.ecfg.speculative, False
+    for u in prompts():
+        core.submit(EngineRequest(prompt_ids=client._prompt_ids("", u, None),
+                                  sampling=client._sampling()))
+    while core.waiting or core.prefilling:
+        core.step()
+    steps = core.metrics["decode_steps"]
+    torch.cuda.synchronize()
+    reset_counts()
+    with profiled() as prof:
+        t0 = time.perf_counter()
+        for _ in range(BIG_PROFILE_STEPS):
+            core.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launched = counts()
+    steps = core.metrics["decode_steps"] - steps
+    core.run_until_idle()
+    core.ecfg.speculative = speculative
+    classes, by_name = device_time_by_class(torch, prof, launched, "70B profile")
+    busy = sum(v[0] for v in classes.values())
+    if not busy or "qmm" not in classes:
+        raise AssertionError(f"70B profile: no K5 in the decode window: {classes}")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return {"decode_steps": steps, "wall_ms": wall * 1e3, "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / (wall * 1e3),
+            "qmm_ms": classes["qmm"][0], "other_ms": busy - classes["qmm"][0],
+            "qmm_ms_per_step": classes["qmm"][0] / max(1, steps),
+            "by_class_ms": {k: v[0] for k, v in sorted(classes.items())},
+            "kernels_by_class": {k: v[1] for k, v in sorted(classes.items())},
+            "top_kernels_ms": {n[:120]: ms for n, ms in top}}
+
+
+def phase_big(torch) -> dict:
+    """Phase 25 (d): llama3-70b-instruct int8 at all 80 layers on the card
+    (:func:`big_client`): its weight bytes must equal ``plan_serving``'s;
+    phase 7's five requests, BIG_MAX_NEW greedy tokens each, with the step
+    graphs on (K5, K1 and K2 must launch; tokens a second, decode seconds a
+    step, TTFT, peak memory), one profiled decode window (device time: K5
+    and the rest), then the same five on a graphs-off twin over the same
+    params: equal streams."""
+    from runbookai_tpu_torch.models.quant import weight_bytes
+
+    free_device(torch)
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    client, plan, pages = big_client(torch)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    core = client.core
+    w_bytes = weight_bytes(core.params)
+    if plan.weight_bytes_per_chip != w_bytes:
+        raise AssertionError(f"70B: plan_serving counts {plan.weight_bytes_per_chip} B of "
+                             f"weights, the tree holds {w_bytes}")
+    res = {"phase": "big_serve", "model": BIG_MODEL, "layers": core.cfg.n_layers,
+           "dtype": "int8", "kv_dtype": str(core.ecfg.kv_dtype).split(".")[1],
+           "weight_bytes": w_bytes, "plan_weight_bytes": plan.weight_bytes_per_chip,
+           "plan_pool_budget_bytes": plan.pool_budget_bytes, "pool_margin": BIG_POOL_MARGIN,
+           "num_pages": pages, "pool_bytes": core.kv.pool.nbytes(),
+           "hbm_bytes": plan.hbm_bytes, "allocated_before": before,
+           "allocated_built": torch.cuda.memory_allocated() - before,
+           "reserved_built": torch.cuda.memory_reserved(), "build_s": build_s,
+           "graph_capture_s": core.metrics["graph_capture_s"],
+           "graph_buckets": len(core._graphs.buckets) if core._graphs else 0}
+    texts = prompts()
+    reset_counts()
+    on = serve_texts(client, texts, BIG_MAX_NEW, "70B")
+    launched = counts()
+    if not all(launched[k] for k in ("qmm_int8", "paged_decode_attention",
+                                     "paged_chunk_attention")):
+        raise AssertionError(f"70B: K5, K1 or K2 never launched: {launched}")
+    free_after, total = torch.cuda.mem_get_info()
+    res.update({**on, "launches": {k: n for k, n in launched.items() if n},
+                "device_free_after_serve": free_after, "device_total": total,
+                "graph_replays": core.metrics["graph_replays"],
+                "decode_forward_ms": forward_replay_ms(torch, core),
+                "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                "max_memory_reserved": torch.cuda.max_memory_reserved()})
+    res["profile"] = big_decode_profile(torch, client)
+    parts = client_parts(client)
+    del client, core
+    free_device(torch)
+    twin = engine_twin(parts, step_graphs=False)
+    del parts
+    off = serve_texts(twin, texts, BIG_MAX_NEW, "70B graphs off")
+    if twin.core.metrics["graph_replays"] or off["greedy_tokens"] != on["greedy_tokens"]:
+        raise AssertionError(f"70B: graphs off gave other greedy tokens, first at "
+                             f"{first_divergence(off['greedy_tokens'], on['greedy_tokens'])}")
+    res["graphs_off"] = {k: off[k] for k in ("wall_s", "tokens_per_s", "decode_s_per_step",
+                                             "ttft_ms")}
+    res["same_tokens_graphs_off"] = True
+    res.pop("greedy_tokens")
+    del twin
+    free_device(torch)
+    return res
+
+
+def long_phases(pa, torch) -> dict:
+    """Phase 25: the kernel cases at the long table, at a group of 8 and K5
+    at the 70B's shapes, then the long deployment, its page split and the
+    70B. Returns the kernel cases and the serving runs' launches."""
+    out = {}
+    for key, phase in (("long", lambda: phase_long_kernels(pa, torch)),
+                       ("group8", lambda: phase_group8_kernels(pa, torch)),
+                       ("qmm", lambda: phase_qmm_big(torch)),
+                       ("serve", lambda: phase_long_serve(torch)),
+                       ("split", lambda: phase_long_split(torch)),
+                       ("big", lambda: phase_big(torch))):
+        out[key] = phase()
+        emit(out[key])
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -6186,6 +7002,10 @@ def main() -> int:
             "bfloat16", "int8", "mixed", "bfloat16:overlap_off", "kv_split"])
     if sys.argv[1:2] == ["--forward-ab"]:
         return forward_ab(Path(sys.argv[2]).resolve())
+    if sys.argv[1:2] == ["--profiler-clock"]:
+        faulthandler.dump_traceback_later(float(sys.argv[2]) + 120, exit=True)
+        _LOG.write_text("")
+        return profiler_clock_run(torch, float(sys.argv[2]))
     if sys.argv[1:2] == ["--overlap-ab"]:
         print(json.dumps(phase_build()), flush=True)
         return overlap_ab()
@@ -6215,6 +7035,13 @@ def main() -> int:
     if sys.argv[1:2] == ["--train"]:
         train_phases(torch)
         return 0
+    if sys.argv[1:2] == ["--long"]:
+        emit(phase_profiler_clock(torch, "start"))
+        long_phases(pa, torch)
+        emit(phase_profiler_clock(torch, "end"))
+        return 0
+    # The profiler's clocks at the start and at the end of the run.
+    emit(phase_profiler_clock(torch, "start"))
     dec = phase_decode(pa, torch)
     emit(dec)
     chk = phase_chunk(pa, torch)
@@ -6236,6 +7063,12 @@ def main() -> int:
     emit(rag_f8)
     qmm = phase_qmm(torch)
     emit(qmm)
+    # Long contexts and the 70B (phase 25), here beside the kernel phases:
+    # late in a full run the profiler records no device event, and its
+    # kernel checks need one. The kernels at a 2,049-column table, at a GQA
+    # group of 8 and K5 at the 70B's shapes; llama3.1-8b at 32k over an fp8
+    # pool, its tp=16 page split, llama3-70b int8 at 80 layers.
+    long = long_phases(pa, torch)
     emit(phase_forward(torch))
     emit(phase_forward_int8(torch))
     # Serving with the step graphs on (the default), each configuration's
@@ -6541,6 +7374,55 @@ def main() -> int:
                     **qmm_rows["decode"], "verify": qmm_rows["verify"],
                     "splits": {f"{c}@{m}": qmm["cases"][f"{m}x{k}x{n}"]["splits"]
                                for m in (8, 64) for c, (k, n) in QMM_SHAPES.items()}})
+    # Phase 25's cases beside each row: at the 2,049-column table
+    # ("ctx32k", "prefill_32k": K2's and W1's), at the 70B's group of 8 ("group8*") and K5
+    # at the 70B's shapes; launches of the long deployment's runs (graphs on,
+    # mixed, the page split) and of the 70B's ("long_launches",
+    # "big_launches").
+    def pick(case, keys):
+        return {f: case[f] for f in keys if f in case}
+
+    case_keys = fields + timing + ("max_abs_err", "q", "kv_local", "tiles")
+    lk, g8, big = long["long"], long["group8"], long["big"]["launches"]
+    serve_on, mixed_on = long["serve"]["graphs"]["launches"], long["serve"]["mixed"]["launches"]
+    split_on = long["split"]["page_split"]["launches"]
+    extra = {
+        "paged_decode_attention": {"ctx32k": lk["decode"], "group8": g8["decode"],
+                                   "big_launches": big.get("paged_decode_attention", 0)},
+        "paged_decode_attention_int8": {"group8": g8["decode_int8"]},
+        "paged_chunk_attention": {"prefill_32k": lk["chunk"],
+                                  "group8_prefill": g8["chunk_prefill"],
+                                  "group8_verify": g8["chunk_verify"],
+                                  "big_launches": big.get("paged_chunk_attention", 0)},
+        "paged_chunk_attention_int8": {"group8_prefill": g8["chunk_int8_prefill"],
+                                       "group8_verify": g8["chunk_int8_verify"]},
+        "paged_ragged_attention": {"ctx32k": lk["ragged"], "group8": g8["ragged"],
+                                   "prefill_32k": lk["ragged_prefill32k"]},
+        "paged_chunk_merge": {"big_launches": big.get("paged_chunk_merge", 0),
+                              "long_launches": serve_on.get("paged_chunk_merge", 0)},
+        "paged_decode_attention_partial": {"ctx32k": lk["decode_partial"]},
+        "paged_decode_attention_fp8": {"ctx32k": lk["decode_fp8"], "long_launches": serve_on.get(
+            "paged_decode_attention_fp8", 0)},
+        "paged_chunk_attention_fp8": {"prefill_32k": lk["chunk_fp8"], "long_launches":
+                                      serve_on.get("paged_chunk_attention_fp8", 0)},
+        "paged_ragged_attention_fp8": {"prefill_32k": lk["ragged_prefill32k_fp8"],
+                                       "long_launches": mixed_on.get(
+                                           "paged_ragged_attention_fp8", 0)},
+        "paged_decode_attention_partial_fp8": {"long_launches": split_on.get(
+            "paged_decode_attention_partial_fp8", 0)},
+        "paged_chunk_attention_partial_fp8": {"long_launches": split_on.get(
+            "paged_chunk_attention_partial_fp8", 0)},
+        "qmm_int8": {"llama3_70b": long["qmm"]["per_layer"],
+                     "llama3_70b_max_abs_err": long["qmm"]["max_abs_err"],
+                     "big_launches": big.get("qmm_int8", 0)},
+    }
+    for row in kernels:
+        for key, val in extra.get(row["name"], {}).items():
+            row[key] = pick(val, case_keys) if isinstance(val, dict) and "ms" in val else val
+        if row["name"] == "ragged_plan":
+            row["ctx32k"] = pick(lk["ragged"]["plan"], plan_keys)
+            row["prefill_32k"] = pick(lk["ragged_prefill32k"]["plan"], plan_keys)
+    emit(phase_profiler_clock(torch, "end"))
     emit({"kernels": kernels})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

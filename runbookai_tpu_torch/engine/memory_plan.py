@@ -103,7 +103,10 @@ def plan_serving(
     (token, kv head): 4 for the int8 KV pool's f32 absmax scales, 0 for
     raw-dtype pools. Weights count every expert of a MoE model, as the
     tree holds them (the JAX package counts only the active ones, and
-    offers their difference to the pool). The JAX package's host spill
+    offers their difference to the pool), and int8 weights one scale an
+    output channel (the JAX package counts ``ffn_dim`` of them for w_down's
+    ``dim``): at tp = 1 the plan's weight bytes are the tree's
+    (``models/quant.py::weight_bytes``). The JAX package's host spill
     tier (``kv_spill_pages``) is not ported (ROADMAP.md queue 1 item 9).
     """
     plan = plan_kv_split(cfg, tp)
@@ -119,10 +122,14 @@ def plan_serving(
         per_chip = _moe_bytes(cfg, weights, tp, plan.kv_shards, layer_matmul, wkv,
                               emb_head)
     elif weights == "int8":
-        # wk/wv shard kv_shards-way only; everything else full-tp.
+        # wk/wv shard kv_shards-way only; everything else full-tp. One f32
+        # scale an output channel of each of the seven matrices.
+        scales = cfg.n_layers * (cfg.n_heads * cfg.head_dim
+                                 + 2 * cfg.n_kv_heads * cfg.head_dim
+                                 + 2 * cfg.dim + 2 * cfg.ffn_dim)
         per_chip = ((layer_matmul - wkv) / max(tp, 1)
                     + wkv / max(plan.kv_shards, 1)
-                    + layer_matmul / cfg.dim * 4 / max(tp, 1)  # scales
+                    + scales * 4 / max(tp, 1)
                     + emb_head * 2 / max(tp, 1))  # bf16
     else:
         per_chip = ((layer_matmul - wkv) * 2 / max(tp, 1)

@@ -39,7 +39,6 @@ from runbookai_tpu_torch.models.llama import (
     CONFIGS,
     LlamaConfig,
     Params,
-    get_config,
     init_params,
     init_params_quantized,
 )
@@ -132,14 +131,22 @@ def _source(model_path: Optional[str | Path]) -> str:
 
 def model_config(model_name: str, model_path: Optional[str | Path]) -> LlamaConfig:
     """The config :func:`load_or_init` gives, without the weights: a
-    checkpoint directory's own, an HF directory's (named ``model_name``), or
-    ``model_name``'s built-in one where there is no directory."""
+    checkpoint directory's own, an HF directory's (named ``model_name``), or,
+    where there is no directory, ``model_name``'s built-in one
+    (:func:`random_config`)."""
     source = _source(model_path)
     if source == "checkpoint":
         return checkpoint_config(model_path)  # a JAX one fails at the load
     if source == "hf":
         return config_from_hf(model_path, name=model_name)
-    return get_config(model_name)
+    return random_config(model_name)
+
+
+def random_config(model_name: str) -> LlamaConfig:
+    """The config of random weights for ``model_name``: its built-in one, or
+    ``llama3-test``'s for a name outside ``CONFIGS``, as the JAX loader
+    serves such a name (``runbookai_tpu/models/hf_loader.py::load_or_init``)."""
+    return CONFIGS.get(model_name, CONFIGS["llama3-test"])
 
 
 def load_or_init(model_name: str, model_path: Optional[str | Path],
@@ -151,6 +158,8 @@ def load_or_init(model_name: str, model_path: Optional[str | Path],
     the seven layer matrices as int8 ``{"q", "s"}`` leaves: quantized on the
     host when loaded from HF (``load_params``), drawn directly in int8 when
     random (``init_params_quantized``); ``dtype`` is the activation dtype.
+    Random params take :func:`random_config`'s config: a name outside
+    ``CONFIGS`` gives ``llama3-test``'s, as in the JAX package.
 
     A checkpoint directory is recognised before HF parsing and restored as
     written (``dtype`` casts its floating leaves that are not float32);
@@ -168,7 +177,7 @@ def load_or_init(model_name: str, model_path: Optional[str | Path],
         cfg = config_from_hf(model_path, name=model_name)
         return load_params(model_path, cfg, dtype=dtype, device=device,
                            quantize_int8=quantize_int8)
-    cfg = get_config(model_name)
+    cfg = random_config(model_name)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     init = init_params_quantized if quantize_int8 else init_params

@@ -875,6 +875,14 @@ def make_handler(bridge: _EngineBridge, model_name: str, request_timeout: float,
     return Handler
 
 
+class _HTTPServer(ThreadingHTTPServer):
+    """``ThreadingHTTPServer`` with a listen queue for bursts: the default of
+    5 resets part of a burst of connections while the accept loop waits on
+    the interpreter beside the engine's thread."""
+
+    request_queue_size = 1024
+
+
 class OpenAIServer:
     """Lifecycle wrapper: build, serve_forever (or background), shutdown."""
 
@@ -883,7 +891,7 @@ class OpenAIServer:
                  allow_runtime_adapters: bool = False, embedder=None):
         self.bridge = _EngineBridge(client)
         try:
-            self.httpd = ThreadingHTTPServer(
+            self.httpd = _HTTPServer(
                 (host, port), make_handler(self.bridge, model_name, request_timeout,
                                            allow_runtime_adapters, embedder))
         except OSError:

@@ -186,6 +186,76 @@ def test_chunk_merge_on_cpu_is_merge_partials_and_the_cast():
         assert torch.all(got[0, 0] == 0)
 
 
+# ------------------------------------- a 2,048-column table: 32k contexts
+
+
+WIDE_PS, WIDE_P = 16, 2048  # max_seq_len 32,768 (+ the trash column)
+
+
+def test_chunk_plan_at_a_wide_table():
+    """``chunk_plan`` at 2,049 columns, by its docstring's arithmetic: the
+    one-row 512-token prefill of the 8B splits in two (256 blocks, under two
+    a SM); the 70B's group of 8 doubles its row tiles, so neither its one-row
+    nor its 4-row prefill splits; the T=8 verify of 8 rows splits in five,
+    the tp=16 call's prefill in three and its verify in 33."""
+    p = WIDE_P + 1
+    cases = {  # (b, t, n_q, n_kv, hd): (rows, q_tiles, splits, cols)
+        (1, 512, 32, 8, 128): (64, 32, 2, 1025),
+        (1, 512, 64, 8, 128): (64, 64, 1, p),
+        (4, 512, 64, 8, 128): (64, 64, 1, p),
+        (8, 8, 32, 8, 128): (32, 1, 5, 410),
+        (8, 8, 64, 8, 128): (64, 1, 5, 410),
+        (4, 512, 4, 1, 128): (64, 32, 3, 683),
+        (8, 8, 4, 1, 128): (32, 1, 33, 63),
+    }
+    for (b, t, n_q, n_kv, hd), want in cases.items():
+        group = n_q // n_kv
+        rows = 32 if t * group <= 32 else 64
+        q_tiles = -(-t * group // rows)
+        ctas = b * n_kv * q_tiles
+        splits = 1 if ctas >= 2 * tpa.SMS else min(-(-2 * tpa.SMS // ctas), -(-p // 16))
+        cols = -(-p // splits)
+        assert (rows, q_tiles, -(-p // cols), cols) == want
+        plan = tpa.chunk_plan(b, t, n_q, n_kv, hd, p)
+        assert (plan.rows, plan.q_tiles, plan.splits, plan.cols) == want
+        assert plan.workspace_bytes == (0 if want[2] == 1
+                                        else want[2] * b * t * n_q * (hd + 2) * 4)
+
+
+@pytest.mark.parametrize("group,cols", [(4, 1025), (8, 410)])
+def test_split_path_at_a_wide_table(group, cols):
+    """The split path at the wide table's splits (two of 1,025 columns, five
+    of 410) on a T=8 chunk at offset 32,752 (ctx 32,760, the last
+    chunk of a 32k prompt), a verify over 1,000 tokens, a ctx-0 row and the
+    engine's pad row: merged, against the plain version."""
+    rng = np.random.default_rng(90 + group + cols)
+    t, starts = 8, [32_752, 992, 0, WIDE_P * WIDE_PS]
+    ctx = np.asarray([32_760, 1000, 0, 1], np.int32)
+    pages = 2_200
+    k = rng.normal(size=(pages * WIDE_PS, N_KV, HD)).astype(np.float32)
+    v = rng.normal(size=(pages * WIDE_PS, N_KV, HD)).astype(np.float32)
+    tables = rng.integers(1, pages, size=(4, WIDE_P + 1)).astype(np.int32)
+    tables[:, WIDE_P] = 0
+    perm, nxt = rng.permutation(np.arange(1, pages)), 0
+    for i, c in enumerate(ctx[:2]):
+        need = -(-int(c) // WIDE_PS)
+        tables[i, :need], nxt = perm[nxt:nxt + need], nxt + need
+    tables[3] = 0
+    pos = np.asarray([np.arange(s, s + t) if i < 2 else
+                      np.full(t, WIDE_P * WIDE_PS) for i, s in enumerate(starts)], np.int32)
+    q = rng.normal(size=(4, t, N_KV * group, HD)).astype(np.float32)
+    args = (_t(q), _t(k), _t(v), _t(tables), _t(ctx), _t(pos[:, 0]), WIDE_PS)
+    acc, m, l = tpa.plain_chunk_partials(*args, cols)
+    assert acc.shape[0] == -(-(WIDE_P + 1) // cols)
+    got = tpa.merge_partials(list(zip(acc, m, l)), torch.device("cpu")).numpy()
+    want = tpa.plain_paged_attention(*args).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    assert np.all(got[2] == 0.0)  # ctx 0
+    assert torch.all(l[:, 0] > 0)  # the 32k row has keys in every split
+    live_1000 = -(-(-(-1000 // WIDE_PS)) // cols)
+    assert torch.all(l[live_1000:, 1] == 0) and torch.all(m[live_1000:, 1] == tpa.NEG_INF)
+
+
 # ----------------------------------------------------- int8 and P in bf16
 
 
@@ -290,3 +360,40 @@ def test_chip_smoke_classes_the_new_kernels_with_the_chunk_calls():
         assert chip_smoke.kernel_class(ns + name) == bf16_cls
         assert chip_smoke.kernel_class(ns + name, int8_pools=True) == int8_cls
         assert (chip_smoke.removed_bf16(ns + name) == "chunk") == old
+
+
+def test_chip_smoke_fails_a_profile_that_lost_events():
+    """``device_time_by_class`` sums a window's kernels by class, skips the
+    GPU-side user annotations, and fails when the window kept no kernel or
+    fewer of the port's kernels than the wrappers counted launches in it."""
+    import types
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    def event(name, us, device="CUDA", annotation=False):
+        return types.SimpleNamespace(
+            name=name, device_type=getattr(torch.autograd.DeviceType, device),
+            is_user_annotation=annotation,
+            time_range=types.SimpleNamespace(elapsed_us=lambda: us))
+
+    chunk = ("void (anonymous namespace)::chunk_attention_mma_kernel<__nv_bfloat16, 128, 2>"
+             "((anonymous namespace)::ChunkArgs)")
+    window = [event(chunk, 30.0), event(chunk, 10.0), event("nvjet_gemm", 50.0),
+              event("prefill", 500.0, annotation=True), event("aten::mm", 7.0, "CPU")]
+    prof = types.SimpleNamespace(events=lambda: window)
+    classes, by_name = chip_smoke.device_time_by_class(
+        torch, prof, {"paged_chunk_attention": 2}, "window")
+    assert classes == {"chunk_attention": [0.04, 2], "matmul": [0.05, 1]}
+    assert by_name == {chunk: 0.04, "nvjet_gemm": 0.05}
+    for lost in (window[1:], window[2:]):
+        prof = types.SimpleNamespace(events=lambda lost=lost: lost)
+        with pytest.raises(AssertionError, match="events lost"):
+            chip_smoke.device_time_by_class(torch, prof, {"paged_chunk_attention": 2},
+                                            "window")
+    # A window of step-graph replays: kernels no wrapper counted.
+    prof = types.SimpleNamespace(events=lambda: window)
+    assert chip_smoke.device_time_by_class(torch, prof, {}, "window")[0] == classes
+    empty = types.SimpleNamespace(events=lambda: [])
+    with pytest.raises(AssertionError, match="events lost"):
+        chip_smoke.device_time_by_class(torch, empty, {}, "window")

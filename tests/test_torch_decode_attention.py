@@ -430,6 +430,95 @@ def test_decode_wrapper_on_cpu_is_the_plain_version():
     assert torch.equal(got, want)
 
 
+# ------------------------- a 2,048-column table: 32k contexts (K1 and K4)
+
+
+# llama3.1-8b-instruct served at max_seq_len 32,768: 16-token pages, 2,048
+# table columns and the trash column. One sequence near 32k, the rest short.
+WIDE_PS, WIDE_P = 16, 2048
+WIDE_CTX = [32_767, 0, 1, 17, 300, 1000, 16, 4097]
+WIDE_PAGES = 2 * 1_300  # two page shards of 1,300 pages
+
+
+def _wide_inputs(rng, group, shards=1):
+    """K/V of WIDE_PAGES pages (2 kv heads, head_dim 16), tables of
+    WIDE_P + 1 columns whose live pages are distinct per sequence; with
+    ``shards`` > 1 each live column draws its page from a random shard."""
+    local = WIDE_PAGES // shards
+    free = [list(rng.permutation(np.arange(max(1, s * local), (s + 1) * local)))
+            for s in range(shards)]
+    tables = rng.integers(1, WIDE_PAGES, size=(len(WIDE_CTX), WIDE_P + 1)).astype(np.int32)
+    tables[:, WIDE_P] = 0
+    for i, c in enumerate(WIDE_CTX):
+        for col in range(-(-c // WIDE_PS)):
+            tables[i, col] = free[int(rng.integers(shards))].pop()
+    k = rng.normal(size=(WIDE_PAGES * WIDE_PS, N_KV, HD)).astype(np.float32)
+    v = rng.normal(size=(WIDE_PAGES * WIDE_PS, N_KV, HD)).astype(np.float32)
+    q = rng.normal(size=(len(WIDE_CTX), N_KV * group, HD)).astype(np.float32)
+    return q, k, v, tables, np.asarray(WIDE_CTX, np.int32)
+
+
+def test_decode_plan_at_a_wide_table():
+    """``decode_plan`` at 2,049 columns, by its docstring's arithmetic:
+    min(ceil(2 * 132 / n_kv), floor(2049 / 4)) splits of ceil(2049 / S)
+    columns, then the count shrunk so that no split is empty."""
+    p = WIDE_P + 1
+    for shape, (splits, cols) in (((8, 32, 8, 128), (33, 63)),  # the 8B
+                                  ((8, 64, 8, 128), (33, 63)),  # the 70B: group 8
+                                  ((8, 4, 1, 128), (257, 8))):  # tp=16: one shard's call
+        b, n_q, n_kv, hd = shape
+        want = max(1, min(-(-2 * tpa.SMS // n_kv), p // tpa.DECODE_MIN_COLS))
+        assert -(-p // -(-p // want)) == splits and -(-p // want) == cols
+        plan = tpa.decode_plan(b, n_q, n_kv, hd, p)
+        assert (plan.splits, plan.cols) == (splits, cols)
+        assert plan.workspace_floats == b * n_q * splits * (hd + 2)
+    # The 32k row's 2,048 live columns reach every split; a 1,000-token row
+    # only the first.
+    assert -(-2048 // 63) == 33 and -(-(-(-1000 // 16)) // 63) == 1
+
+
+@pytest.mark.parametrize("group", [4, 8])
+def test_decode_split_path_at_a_wide_table(group):
+    """K1 at the 8B's (group 4) and the 70B's (group 8) split of a 2,049-column
+    table, one row at 32,767 keys: against the plain version."""
+    rng = np.random.default_rng(160 + group)
+    q, k, v, tables, ctx = _wide_inputs(rng, group)
+    cols = tpa.decode_plan(8, 8 * group, 8, 128, WIDE_P + 1).cols
+    got, parts = emulate_decode(_t(q), _t(k), _t(v), _t(tables), _t(ctx), WIDE_PS, cols)
+    want = tpa.plain_paged_attention(_t(q)[:, None], _t(k), _t(v), _t(tables), _t(ctx),
+                                     None, WIDE_PS)[:, 0]
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
+    assert torch.all(got[1] == 0)  # ctx 0
+    assert torch.all(parts[2][:, 0] > 0)  # the 32k row: every split live
+    assert torch.all(parts[2][1:, 5] == 0)  # 1,000 tokens: the first split only
+
+
+def test_decode_partial_at_a_wide_table():
+    """K4 at the tp=16 call's split (257 splits of 8 columns) on two page
+    shards of a 2,049-column table, the 32k row's pages drawn over both:
+    each shard's (acc, m, l) against the plain partial, their merge against
+    K1's plain version on the whole pool."""
+    rng = np.random.default_rng(170)
+    q, k, v, tables, ctx = _wide_inputs(rng, 4, shards=2)
+    cols = tpa.decode_plan(8, 4, 1, 128, WIDE_P + 1).cols
+    local = WIDE_PAGES // 2
+    halves = []
+    for shard in range(2):
+        sl = slice(shard * local * WIDE_PS, (shard + 1) * local * WIDE_PS)
+        (acc, m, l), _ = emulate_decode(_t(q), _t(k[sl]), _t(v[sl]), _t(tables), _t(ctx),
+                                        WIDE_PS, cols, shard=shard, pages_local=local)
+        plain = tpa.paged_decode_attention_partial(_t(q), _t(k[sl]), _t(v[sl]), _t(tables),
+                                                   _t(ctx), shard, WIDE_PS, local)
+        for got, want in zip((acc, m, l), plain):
+            np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+        assert torch.all(l[0] > 0)  # the 32k row has pages on both shards
+        halves.append((acc, m, l))
+    whole = tpa.plain_paged_attention(_t(q)[:, None], _t(k), _t(v), _t(tables), _t(ctx),
+                                      None, WIDE_PS)[:, 0]
+    np.testing.assert_allclose(tpa.merge_partials(halves, torch.device("cpu")).numpy(),
+                               whole.numpy(), **TOL)
+
+
 # ------------------------------------------------- chip_smoke's profile
 
 

@@ -51,6 +51,8 @@ from runbookai_tpu_torch.parallel.mesh import build_mesh
 from runbookai_tpu_torch.parallel.sharding import param_splits, shard_params
 from runbookai_tpu_torch.utils.tokens import ByteTokenizer
 
+from test_torch_serve_obs import jax_plan_with_exact_scales
+
 from test_torch_model import _paged_inputs
 
 if os.environ.get("PYTEST_XDIST_WORKER"):
@@ -555,9 +557,12 @@ def test_plan_counts_every_expert(model, weights_kind):
 @pytest.mark.parametrize("model", ["llama3-8b-instruct", "llama3-test", "qwen2-test",
                                    "llama3.2-1b-instruct"])
 def test_plan_keeps_dense_numbers(model):
-    """Dense models: every field of the plan as before (JAX's)."""
+    """Dense models: every field of the plan as before (JAX's), int8 scales
+    counted as the tree holds them (``test_torch_serve_obs.py``)."""
     for weights_kind, tp in (("bf16", 1), ("int8", 1), ("int8", 4)):
         kw = dict(max_seq_len=8192, hbm_bytes=16 * GiB, weights=weights_kind, tp=tp)
         got = dataclasses.asdict(plan_serving(tllama.CONFIGS[model], **kw))
-        want = dataclasses.asdict(jplan_serving(jllama.CONFIGS[model], **kw))
+        want = dataclasses.asdict(jax_plan_with_exact_scales(
+            jplan_serving(jllama.CONFIGS[model], **kw), tllama.CONFIGS[model], tp,
+            weights_kind))
         assert got == {k: v for k, v in want.items() if k != "host_spill_bytes"}

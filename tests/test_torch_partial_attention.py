@@ -53,7 +53,8 @@ def _t(x):
 # ---------------------------------------------- the kernel emulated in f32
 
 
-def emulate_chunk_partial(q, k_local, v_local, tables, ctx, q_start, shard, plan, walks=None):
+def emulate_chunk_partial(q, k_local, v_local, tables, ctx, q_start, shard, plan, walks=None,
+                          pages_local=LOCAL):
     """What the partial kernel computes, in f32: for every (sequence, kv head, row tile
     of ``plan.rows`` (token, group head) rows) and split, the owned columns
     of the split below the block's key bound, keys in tiles of 64 with
@@ -61,7 +62,8 @@ def emulate_chunk_partial(q, k_local, v_local, tables, ctx, q_start, shard, plan
     q_start + t + 1), and (acc, m in natural-log units, l); several splits
     combined in split order (plain version: combine_partials). ``walks``, if
     given, collects each block's (sequence, split, columns, local pages,
-    key bound in columns)."""
+    key bound in columns). Page shard ``shard`` owns global pages
+    ``[shard * pages_local, (shard + 1) * pages_local)``."""
     b, t, n_q, hd = q.shape
     n_kv, p = k_local.shape[1], tables.shape[1]
     group = n_q // n_kv
@@ -80,8 +82,9 @@ def emulate_chunk_partial(q, k_local, v_local, tables, ctx, q_start, shard, plan
                 for s in range(plan.splits):
                     c0 = s * plan.cols
                     c1 = min(c0 + plan.cols, -(-hi // PS)) if hi > 0 else c0
-                    cols = [c for c in range(c0, c1) if int(tables[i, c]) // LOCAL == shard]
-                    pages = [int(tables[i, c]) - shard * LOCAL for c in cols]
+                    cols = [c for c in range(c0, c1)
+                            if int(tables[i, c]) // pages_local == shard]
+                    pages = [int(tables[i, c]) - shard * pages_local for c in cols]
                     if walks is not None:
                         walks.append((i, s, cols, pages, c1))
                     n_keys = len(cols) * PS
@@ -234,6 +237,60 @@ def test_chunk_plan_at_the_page_split_call_shapes():
     verify = tpa.chunk_plan(8, 8, 4, 1, 128, 513)
     assert (verify.rows, verify.q_tiles, verify.splits, verify.cols) == (32, 1, 33, 16)
     assert max(prefill.cols, verify.cols) <= 513
+
+
+def test_chunk_plan_at_a_wide_table():
+    """The tp=16 call at 2,049 columns (max_seq_len 32,768): the 4 x 512
+    prefill splits in three of 683 columns, the T=8 verify in 33 of 63; the
+    owned-column list of a split (at most ``cols`` entries) stays in shared
+    memory."""
+    prefill = tpa.chunk_plan(4, 512, 4, 1, 128, 2049)
+    assert (prefill.rows, prefill.q_tiles, prefill.splits, prefill.cols) == (64, 32, 3, 683)
+    verify = tpa.chunk_plan(8, 8, 4, 1, 128, 2049)
+    assert (verify.rows, verify.q_tiles, verify.splits, verify.cols) == (32, 1, 33, 63)
+
+
+@pytest.mark.parametrize("cols", [683, 63])
+def test_owned_page_walk_at_a_wide_table(cols):
+    """The owned-page walk over a 2,049-column table at the tp=16 call's
+    splits: a T=8 chunk at offset 32,752 (ctx 32,760) whose pages interleave
+    over two shards of 1,100 pages, a verify over 1,000 tokens on shard 1
+    alone, a ctx-0 row; each shard's (acc, m, l) against the plain partial,
+    and both merged against the plain version on the whole pool."""
+    rng = np.random.default_rng(180 + cols)
+    t, group, p, local = 8, 4, 2049, 1_100
+    ctx = np.asarray([32_760, 1000, 0], np.int32)
+    k = rng.normal(size=(2 * local * PS, N_KV, HD)).astype(np.float32)
+    v = rng.normal(size=(2 * local * PS, N_KV, HD)).astype(np.float32)
+    tables = rng.integers(1, 2 * local, size=(3, p)).astype(np.int32)
+    tables[:, p - 1] = 0
+    free = [list(rng.permutation(np.arange(max(1, s * local), (s + 1) * local)))
+            for s in range(2)]
+    for col in range(-(-32_760 // PS)):
+        tables[0, col] = free[col % 2].pop()
+    for col in range(-(-1000 // PS)):
+        tables[1, col] = free[1].pop()
+    pos = np.asarray([np.arange(32_752, 32_760), np.arange(992, 1000), np.arange(t)],
+                     np.int32)
+    q = rng.normal(size=(3, t, N_KV * group, HD)).astype(np.float32)
+    plan = _plan(q, tables, cols)
+    q_start = _t(pos[:, 0])
+    parts = []
+    for shard, (kk, vv) in enumerate(zip(_t(k).chunk(2), _t(v).chunk(2))):
+        acc, m, l = emulate_chunk_partial(_t(q), kk, vv, _t(tables), _t(ctx), q_start, shard,
+                                          plan, pages_local=local)
+        plain = tpa.plain_paged_attention_partial(_t(q), kk, vv, _t(tables), _t(ctx), q_start,
+                                                  PS, shard, local)
+        np.testing.assert_allclose(_normalised(acc, l), _normalised(plain[0], plain[2]),
+                                   rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(m.numpy(), plain[1].numpy(), rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(l.numpy(), plain[2].numpy(), rtol=1e-6, atol=1e-6)
+        assert torch.all(l[0] > 0)  # the 32k chunk sees keys on both shards
+        assert torch.all(l[1] == 0) == (shard == 0)  # the verify's pages: shard 1 only
+        parts.append((acc, m, l))
+    whole = tpa.plain_paged_attention(_t(q), _t(k), _t(v), _t(tables), _t(ctx), q_start, PS)
+    np.testing.assert_allclose(tpa.merge_partials(parts, torch.device("cpu")).numpy()[:2],
+                               whole.numpy()[:2], **TOL)
 
 
 # -------------------------------------------- the merge of a call's splits

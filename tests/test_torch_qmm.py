@@ -15,7 +15,8 @@ interpret mode:
   output channels on the A side (``mma.m16n8k16``, or ``wgmma.m64n64k16``
   with x read through its shared-memory descriptor), the K warps' halves
   added at the end, and the epilogue's writes;
-- ``qmm_plan`` at every M the kernel takes and the 8B's seven products.
+- ``qmm_plan`` at every M the kernel takes and the 8B's and the 70B's seven
+  products.
 
 Tolerances: float32 results differ from the plain version only by the order
 of the float32 sums, at most ``QMM_TOL`` (1e-5) for K <= 4096 at these
@@ -49,6 +50,10 @@ BF16_TOL = dict(rtol=1e-2, atol=1e-3)
 SHAPES_8B = {"wq": (4096, 4096), "wk": (4096, 1024), "wv": (4096, 1024),
              "wo": (4096, 4096), "w_gate": (4096, 14336), "w_up": (4096, 14336),
              "w_down": (14336, 4096)}
+# llama3-70b-instruct's.
+SHAPES_70B = {"wq": (8192, 8192), "wk": (8192, 1024), "wv": (8192, 1024),
+              "wo": (8192, 8192), "w_gate": (8192, 28672), "w_up": (8192, 28672),
+              "w_down": (28672, 8192)}
 
 
 def _inputs(m, k, n, seed=0):
@@ -389,17 +394,18 @@ def test_fragment_walk_matches_plain(m, k, n, k_slice):
 # ------------------------------------------------- the plan
 
 
-def _plan_cases():
-    """Every M the kernel takes, the 8B's four (K, N) and both types of x."""
-    return itertools.product(range(1, tqmm.MAX_M + 1), sorted(set(SHAPES_8B.values())),
+def _plan_cases(shapes=SHAPES_8B):
+    """Every M the kernel takes, a model's four (K, N) (the 8B's unless
+    given) and both types of x."""
+    return itertools.product(range(1, tqmm.MAX_M + 1), sorted(set(shapes.values())),
                              (False, True))
 
 
-def test_qmm_plan_tiles_k_and_the_output():
+def test_qmm_plan_tiles_k_and_the_output(shapes=SHAPES_8B):
     """Every split is a whole number of 32-row units, the splits cover K
     once (only the last may be shorter), and the grid of column tiles times
     splits covers every (K unit, output tile) exactly once."""
-    for m, (k, n), f32 in _plan_cases():
+    for m, (k, n), f32 in _plan_cases(shapes):
         plan = tqmm.qmm_plan(m, k, n, f32)
         wide = f32 or tqmm.qmm_route(m) != "wgmma" or n // tqmm.QMM_TILE_N >= tbuild.SMS // 8
         assert plan.tile_n == (tqmm.QMM_TILE_N if wide else tqmm.QMM_NARROW_TILE_N)
@@ -414,12 +420,12 @@ def test_qmm_plan_tiles_k_and_the_output():
         assert (cover == 1).all(), (m, k, n)
 
 
-def test_qmm_plan_fills_the_sms_within_the_cached_workspace():
+def test_qmm_plan_fills_the_sms_within_the_cached_workspace(shapes=SHAPES_8B):
     """Blocks >= the SMs wherever K (two stages a split) and the workspace
     allow it, the partials fit the workspace cap, and the merge reads at
     most QMM_MERGE_ROWS rows of partials a channel beyond what filling the
     SMs needs."""
-    for m, (k, n), f32 in _plan_cases():
+    for m, (k, n), f32 in _plan_cases(shapes):
         plan = tqmm.qmm_plan(m, k, n, f32)
         tiles = n // plan.tile_n
         assert plan.workspace_floats <= tqmm.QMM_WORKSPACE_FLOATS, (m, k, n)
@@ -430,10 +436,22 @@ def test_qmm_plan_fills_the_sms_within_the_cached_workspace():
                     or more * m * n > tqmm.QMM_WORKSPACE_FLOATS), (m, k, n, plan)
         fill = -(-tbuild.SMS // tiles)
         assert plan.splits <= max(fill + 2, tqmm.QMM_MERGE_ROWS // m), (m, k, n, plan)
-    # The 8B's products fill the SMs at every M.
-    for m, (k, n), f32 in _plan_cases():
+    # The model's products fill the SMs at every M.
+    for m, (k, n), f32 in _plan_cases(shapes):
         plan = tqmm.qmm_plan(m, k, n, f32)
         assert plan.splits * n // plan.tile_n >= tbuild.SMS, (m, k, n, f32, plan)
+
+
+def test_qmm_plan_at_the_70b_shapes():
+    """The same at llama3-70b-instruct's four (K, N), K up to 28,672: every
+    product takes the kernel, the splits tile K and the output, and fill
+    the SMs within the workspace."""
+    assert all(tqmm.qmm_eligible(m, k, n) for m in (1, 8, 64, 256)
+               for k, n in SHAPES_70B.values())
+    test_qmm_plan_tiles_k_and_the_output(SHAPES_70B)
+    test_qmm_plan_fills_the_sms_within_the_cached_workspace(SHAPES_70B)
+    assert [tqmm.qmm_plan(8, k, n).splits for k, n in sorted(set(SHAPES_70B.values()))] == \
+        [64, 8, 2, 8]  # chip_smoke.py's qmm_70b_kernel cases at M = 8
 
 
 def test_qmm_plan_depends_on_shapes_only():

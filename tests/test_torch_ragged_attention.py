@@ -91,7 +91,7 @@ def _pad_blocks(row_ids, ctx):
     return [i for i, r in enumerate(row_ids) if ctx[r] == 0]
 
 
-@pytest.mark.parametrize("group", [1, 4, 7])
+@pytest.mark.parametrize("group", [1, 4, 7, 8])
 def test_plain_ragged_matches_jax_xla(group):
     (q, k, v, tables, ctx, pos, rows), real = ragged_case(group, n_kv=2, group=group)
     got = tattn.ragged_paged_attention(_t(q), _t(k), _t(v), _t(tables), _t(ctx), _t(pos),
@@ -103,7 +103,7 @@ def test_plain_ragged_matches_jax_xla(group):
     np.testing.assert_allclose(got.numpy()[real], np.asarray(want)[real], **TOL)
 
 
-@pytest.mark.parametrize("group", [1, 4, 7])
+@pytest.mark.parametrize("group", [1, 4, 7, 8])
 def test_w1_plain_route_matches_pallas_interpret(group):
     (q, k, v, tables, ctx, pos, rows), real = ragged_case(10 + group, n_kv=2, group=group)
     got = tpa.paged_ragged_attention(_t(q), _t(k), _t(v), _t(tables), _t(ctx), _t(pos),
@@ -160,7 +160,7 @@ def test_chunk_plan_at_the_mixed_shapes():
     assert (group7.rows, group7.q_tiles) == (64, 1)
 
 
-@pytest.mark.parametrize("group", [1, 4, 7])
+@pytest.mark.parametrize("group", [1, 4, 7, 8])
 def test_cuda_route_emulated_split_and_merge(group):
     """The mixed batch as one chunk call at [N / 8, 8] on each block's
     gathered table row and context (the tensor-parallel mixed forward's

@@ -105,7 +105,7 @@ def test_ragged_plan_at_the_serving_mixed_shape():
 
 
 @pytest.mark.parametrize("kind", ["served", "long"])
-@pytest.mark.parametrize("geo", [(32, 8, 128), (28, 4, 128), (32, 8, 64)])
+@pytest.mark.parametrize("geo", [(32, 8, 128), (28, 4, 128), (32, 8, 64), (64, 8, 128)])
 def test_ragged_plan_covers_each_row_once(kind, geo):
     """Each tile lies inside one run; the prefill tiles and the first split
     of each one-block tile cover every (token, head) row of every run once;
@@ -246,7 +246,7 @@ LAYOUTS = {"served": lambda: serving_layout(SERVED, 512),
 
 
 @pytest.mark.parametrize("layout", sorted(LAYOUTS))
-@pytest.mark.parametrize("geo", [(32, 8, 128), (28, 4, 128), (8, 8, 64)])
+@pytest.mark.parametrize("geo", [(32, 8, 128), (28, 4, 128), (8, 8, 64), (64, 8, 128)])
 def test_plan_kernel_schedule_gives_the_plain_list(layout, geo):
     """The tile list kernel's schedule, emulated, writes the plain list
     record for record (records, live count, weights), the dead records
@@ -398,7 +398,7 @@ def _dequantized(pool):
 
 
 @pytest.mark.parametrize("int8", [False, True])
-@pytest.mark.parametrize("group", [1, 4, 7])
+@pytest.mark.parametrize("group", [1, 4, 7, 8])
 def test_emulated_kernel_matches_plain_and_pallas(group, int8):
     """The emulated schedule over this file's mixed batch (decode rows, a
     free slot, a two-block prefill, a one-block chunk, a pad block) against
@@ -461,7 +461,7 @@ def long_case(seed: int, group: int, n_kv: int = 2, hd: int = 16, ps: int = 16):
 
 
 @pytest.mark.parametrize("int8", [False, True])
-@pytest.mark.parametrize("group", [1, 4, 7])
+@pytest.mark.parametrize("group", [1, 4, 7, 8])
 def test_emulated_splits_merge_in_order(group, int8):
     """Long decode rows split over key ranges (512 keys a split at these
     200-column tables); the emulated splits, merged in split order, against
@@ -477,6 +477,102 @@ def test_emulated_splits_merge_in_order(group, int8):
     assert not got.isnan().any()
     plain = tpa.plain_ragged_attention(_t(q), kp, vp, _t(tables), _t(ctx), _t(pos), _t(rows),
                                        ps, RQ)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), **TOL)
+    pads = _pad_blocks(rows, ctx)
+    assert pads and not got.numpy()[pads].any()
+
+
+# A 2,048-column table (+ the trash column): max_seq_len 32,768 of 16-token pages.
+WIDE_P, WIDE_PS = 2049, 16
+
+
+def test_ragged_shape_at_a_wide_table():
+    """``ragged_shape`` at 2,049 columns, by its docstring's arithmetic: a
+    one-block tile's keys split into ranges of 64 * max(8, ceil(2049 * 16 /
+    512)) = 4,160 keys, at most 8 of them; the capacity bounds one tile a
+    one-block run, 7 more for each of 16 split runs and the prefill tiles, per
+    kv head; the 8B's (group 4) and the 70B's (group 8) serving mixed batch
+    of N = 576."""
+    for (n_q, n_kv), prefill_tiles in (((32, 8), 18), ((64, 8), 36)):
+        group = n_q // n_kv
+        shape = tpa.ragged_shape(576, n_q, n_kv, 128, WIDE_P, WIDE_PS)
+        keys = 64 * max(512 // 64, -(-WIDE_P * WIDE_PS // (64 * 8)))
+        assert (shape.keys_per_split, shape.max_splits) == (keys, 8) == (4160, 8)
+        assert -(-72 * RQ * group // 128) == prefill_tiles
+        per_head = 72 + 16 * 7 + prefill_tiles
+        assert (shape.capacity, shape.ctas) == (n_kv * per_head, min(n_kv * per_head,
+                                                                     tpa.SMS))
+        assert (shape.split_runs, shape.counters) == (16, 2 + 16 * n_kv)
+        assert shape.workspace_floats == 16 * n_kv * 8 * RQ * group * 130
+
+
+def wide_case(seed: int, group: int, n_kv: int = 2, hd: int = 16,
+              pf_start: int = 16_000, pf_len: int = 24):
+    """A mixed batch over 2,049-column tables: decode rows at 32,767, 83 and
+    1 keys, a free slot, a ``pf_len``-token prefill at offset ``pf_start``
+    and a pad block."""
+    rng = np.random.default_rng(seed)
+    ps, p = WIDE_PS, WIDE_P
+    ctx = np.array([32_767, 83, 1, 0, pf_start + pf_len, 0], np.int32)
+    num_pages = max(3_200, sum(-(-int(c) // ps) for c in ctx) + 1)
+    k = rng.standard_normal((num_pages * ps, n_kv, hd)).astype(np.float32)
+    v = rng.standard_normal((num_pages * ps, n_kv, hd)).astype(np.float32)
+    tables = np.zeros((len(ctx), p), np.int32)
+    perm, nxt = rng.permutation(np.arange(1, num_pages)), 0
+    for r, c in enumerate(ctx):
+        need = -(-int(c) // ps)
+        tables[r, :need] = perm[nxt:nxt + need]
+        nxt += need
+    trash = (p - 1) * ps
+    rows, pos = [], []
+    for r, c in ((0, 32_767), (1, 83), (2, 1), (5, 0)):
+        rows += [r] * RQ
+        pos += [c - 1 if c else trash] + [trash] * (RQ - 1)
+    rows += [4] * pf_len + [5] * RQ
+    pos += list(range(pf_start, pf_start + pf_len)) + [trash] * RQ
+    q = rng.standard_normal((len(rows), n_kv * group, hd)).astype(np.float32)
+    return q, k, v, tables, ctx, np.array(pos, np.int32), np.array(rows, np.int32)
+
+
+@pytest.mark.parametrize("group", [4, 8])
+def test_emulated_kernel_at_a_wide_table(group):
+    """The emulated schedule with one decode row at a 32k context: its
+    one-block tile splits into all 8 key ranges of 4,160 keys, merged in
+    order; every token against the plain version at 1e-4, pad blocks
+    exactly zero."""
+    q, k, v, tables, ctx, pos, rows = wide_case(60 + group, group)
+    kp, vp = _t(k).to(torch.bfloat16).float(), _t(v).to(torch.bfloat16).float()
+    plan = _plan(rows, pos, ctx, q.shape[1], 2, q.shape[2], WIDE_P, WIDE_PS)
+    splits = {t[1]: t[7] for t in _live_tiles(plan) if t[7]}
+    assert splits[0] == plan.shape.max_splits == 8 and splits[8] == splits[16] == 1
+    got = emulate_ragged_kernel(_t(q), kp, vp, _t(tables), _t(ctx), _t(pos), plan, WIDE_PS)
+    assert not got.isnan().any()
+    plain = tpa.plain_ragged_attention(_t(q), kp, vp, _t(tables), _t(ctx), _t(pos), _t(rows),
+                                       WIDE_PS, RQ)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), **TOL)
+    pads = _pad_blocks(rows, ctx)
+    assert pads and not got.numpy()[pads].any()
+
+
+@pytest.mark.parametrize("group", [4, 8])
+def test_emulated_long_prefill_at_a_wide_table(group):
+    """A 32k prompt's last chunk in the mixed batch: 128 prefill tokens at
+    offset 32,640 (ctx 32,768) beside the 32,767-key decode row. The prefill
+    is not split: each of its tiles walks every key below its rows'
+    positions, about 32.7k, in one run. Every token against the plain
+    version at 1e-4, pad blocks exactly zero."""
+    q, k, v, tables, ctx, pos, rows = wide_case(70 + group, group, pf_start=32_640,
+                                                pf_len=128)
+    kp, vp = _t(k).to(torch.bfloat16).float(), _t(v).to(torch.bfloat16).float()
+    plan = _plan(rows, pos, ctx, q.shape[1], 2, q.shape[2], WIDE_P, WIDE_PS)
+    prefill = [t for t in _live_tiles(plan) if t[0] == 4]
+    assert prefill and all(t[7] == 0 for t in prefill)
+    assert max(t[5] for t in prefill) == 32_768
+    assert len(prefill) == 2 * -(-128 * group // 128)
+    got = emulate_ragged_kernel(_t(q), kp, vp, _t(tables), _t(ctx), _t(pos), plan, WIDE_PS)
+    assert not got.isnan().any()
+    plain = tpa.plain_ragged_attention(_t(q), kp, vp, _t(tables), _t(ctx), _t(pos), _t(rows),
+                                       WIDE_PS, RQ)
     np.testing.assert_allclose(got.numpy(), plain.numpy(), **TOL)
     pads = _pad_blocks(rows, ctx)
     assert pads and not got.numpy()[pads].any()
